@@ -1,0 +1,119 @@
+"""MagicaVoxel `.vox` parser (numpy).
+
+Counterpart of `voxel_tracer_tpu/models/vox.py`: the RIFF-style chunks
+MAIN / PACK / SIZE / XYZI / RGBA, multiple models and the 256-entry
+palette that the reference reads through `ogt_vox` (vv.cpp:12-54).  Grid
+axis remap as vv.cpp:30,39-49: our (X, Y, Z) = (vox_size_y, vox_size_z,
+vox_size_x) with the vox Y axis flipped, so models stand upright with Y up.
+The JAX package's optional C parser is not ported; this numpy path is its
+reference.
+
+Format spec: https://github.com/ephtracy/voxel-model/blob/master/MagicaVoxel-file-format-vox.txt
+"""
+
+from __future__ import annotations
+
+import struct
+from dataclasses import dataclass, field
+from typing import List
+
+import numpy as np
+
+
+def _default_palette() -> np.ndarray:
+    """The canonical MagicaVoxel default palette (256 x RGBA uint8).
+
+    A 6x6x6 color cube followed by R/G/B/gray ramps; index 0 is
+    transparent black.
+    """
+    pal = np.zeros((256, 4), np.uint8)
+    levels = [255, 204, 153, 102, 51, 0]
+    i = 1
+    for r in levels:
+        for g in levels:
+            for b in levels:
+                if i >= 256:
+                    break
+                if (r, g, b) == (0, 0, 0):
+                    continue
+                pal[i] = (r, g, b, 255)
+                i += 1
+    ramp = [238, 221, 187, 170, 136, 119, 85, 68, 34, 17]
+    for v in ramp:
+        pal[i] = (v, 0, 0, 255); i += 1
+    for v in ramp:
+        pal[i] = (0, v, 0, 255); i += 1
+    for v in ramp:
+        pal[i] = (0, 0, v, 255); i += 1
+    for v in ramp:
+        pal[i] = (v, v, v, 255); i += 1
+    return pal
+
+
+@dataclass
+class VoxModel:
+    """One model from a .vox file, already remapped to our (Z, Y, X) grid."""
+
+    grid: np.ndarray                 # (Z, Y, X) uint8 material ids
+    palette: np.ndarray              # (256, 4) uint8 RGBA
+    size: tuple = field(default=None)  # our (nx, ny, nz)
+
+    def __post_init__(self):
+        gz, gy, gx = self.grid.shape
+        self.size = (gx, gy, gz)
+
+    @property
+    def palette_f32(self) -> np.ndarray:
+        """(256, 3) float albedo in [0, 1] (RGB8_to_RGBF32 analog)."""
+        return self.palette[:, :3].astype(np.float32) / 255.0
+
+
+def parse_vox(data: bytes) -> List[VoxModel]:
+    """Parse .vox bytes into a list of models (shared palette)."""
+    if data[:4] != b"VOX ":
+        raise ValueError("not a .vox file (missing 'VOX ' magic)")
+    pos = 8   # skip magic + version
+
+    sizes = []
+    xyzis = []
+    palette = _default_palette()
+
+    end = len(data)
+    while pos + 12 <= end:
+        cid = data[pos: pos + 4]
+        n, _children = struct.unpack_from("<ii", data, pos + 4)
+        content = data[pos + 12: pos + 12 + n]
+        nxt = pos + 12 + n
+        if cid == b"SIZE":
+            sizes.append(struct.unpack_from("<iii", content, 0))
+        elif cid == b"XYZI":
+            (cnt,) = struct.unpack_from("<i", content, 0)
+            arr = np.frombuffer(content, np.uint8, count=cnt * 4, offset=4)
+            xyzis.append(arr.reshape(cnt, 4))
+        elif cid == b"RGBA":
+            raw = np.frombuffer(content, np.uint8, count=256 * 4).reshape(256, 4)
+            # RGBA chunk color i maps to palette index i+1 (spec)
+            palette = np.zeros((256, 4), np.uint8)
+            palette[1:] = raw[:255]
+        elif cid == b"MAIN":
+            nxt = pos + 12  # descend into children
+        pos = nxt
+
+    models = []
+    for (sx, sy, sz), vox in zip(sizes, xyzis):
+        # Voxels are (x, y, z, color_index) in vox coords
+        v = np.zeros((sz, sy, sx), np.uint8)
+        if len(vox):
+            v[vox[:, 2].astype(np.int64), vox[:, 1].astype(np.int64),
+              vox[:, 0].astype(np.int64)] = vox[:, 3]
+        # Axis remap (vv.cpp:39-49): grid[vx, vz, sy-1-vy] = vox[vz, vy, vx]
+        grid = v.transpose(2, 0, 1)[:, :, ::-1].copy()
+        models.append(VoxModel(grid=grid, palette=palette))
+    return models
+
+
+def load_vox(path: str, model_id: int = 0) -> VoxModel:
+    """Load one model from a .vox file (OVoxelVolume ctor analog, vv.cpp:12-54)."""
+    with open(path, "rb") as f:
+        models = parse_vox(f.read())
+    return models[model_id]

@@ -1,0 +1,255 @@
+"""Batched two-level (brickmap) Amanatides-Woo DDA in PyTorch.
+
+Counterpart of `voxel_tracer_tpu/ops/dda.py` (the reference single-ray
+traversal, src/graphics/primitives/vv.cpp:127-369, re-written as a
+lock-step wavefront): every iteration performs one brick-level or
+fine-level step per ray with `torch.where` selects.  Semantics are those
+of the JAX function, operation for operation: the step budget
+`MAX_STEPS = 256` is shared across both levels (vv.cpp:7), a fine-exit
+and the brick step it triggers count as one step, a brick step that
+leaves the grid counts, and entry-voxel hits keep the slab entry normal
+(vv.cpp:159).
+
+Rounding is part of the contract, because a one-ulp change in a crossing
+t can flip a tie in the step ladder and change `steps` and `axis`.  XLA's
+CPU backend contracts a multiply that feeds an add into one fused
+multiply-add, and the JAX function's float32 results depend on it at three
+places: the brick entry point, the brick entry t and the fine entry point
+(`_fma` below).  This module computes exactly those as fused
+multiply-adds and every other operation unfused, which reproduces the
+JAX function's t bit for bit on the parity tests.  It is the plain version
+of the traversal inside the CUDA megakernel (`csrc/mega.cu`), which walks
+the same state machine one ray per thread with the same operations in the
+same order (`fmaf` at the same three places, `--fmad=false` elsewhere).
+Every divisor is a tensor on the rays' device, never a Python scalar:
+PyTorch's CUDA division by a CPU scalar multiplies by its reciprocal,
+which rounds differently.
+
+The `medium`, `ignore` and `shadow` modes of the JAX function come with
+the Whitted slice of the port.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from voxel_tracer_tpu_torch.ops.math3d import BIG_F32, sign_dir
+
+MAX_STEPS = 256
+BRICK = 8
+
+# Ray state machine modes
+_MISS = 0      # terminated without a hit
+_BRICK = 1     # about to test the brick at bcell
+_FINE = 2      # about to test the voxel at fcell inside bcell
+_HIT = 3       # terminated with a hit
+
+# rays test for termination every this many lock-step iterations (one host
+# sync each); extra iterations leave finished rays unchanged
+_SYNC_EVERY = 8
+
+
+def slab_test(origin_l, dir_l, size):
+    """Batched slab entry test vs the local AABB [0, size].
+
+    Vectorized analog of OBB::intersect (obb.cpp:48-80): tmin clamped >= 0,
+    hit iff tmax - 1e-4 >= tmin.  Returns (tmin, tmax, entry_axis, hitmask).
+    """
+    rcp = torch.reciprocal(dir_l)                       # +-inf where dir == 0
+    t1 = (0.0 - origin_l) * rcp
+    t2 = (size - origin_l) * rcp
+    tn = torch.minimum(t1, t2)
+    tf = torch.maximum(t1, t2)
+    # NaN guard: 0 * inf when the origin sits exactly on a slab plane.
+    tn = torch.where(torch.isnan(tn), -BIG_F32, tn)
+    tf = torch.where(torch.isnan(tf), BIG_F32, tf)
+    tn = torch.cat([torch.zeros_like(tn[..., :1]), tn], dim=-1)  # clamp >= 0
+    entry_axis = torch.argmax(tn, dim=-1)               # 0 => clamped at origin
+    tmin = torch.amax(tn, dim=-1)
+    tmax = torch.amin(tf, dim=-1)
+    hit = tmax - 1e-4 >= tmin
+    entry_axis = torch.clamp(entry_axis - 1, min=0)     # fold origin-clamp into axis 0
+    return tmin, tmax, entry_axis.to(torch.int32), hit
+
+
+def _fma(a, b, c):
+    """a * b + c rounded once to float32, like CUDA's fmaf.
+
+    The float64 product of two float32 values is exact, and the float64 sum
+    rounds once before the cast; that differs from a true fused
+    multiply-add only where the float64 sum lands exactly on a float32
+    rounding tie."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _aw_step(cell, tmax3, step, delta, size3):
+    """One Amanatides-Woo step in the reference comparison order
+    (vv.cpp:176-202).  Returns (cell, tmax3, t, axis, oob)."""
+    tx, ty, tz = tmax3.unbind(-1)
+    use_x = (tx < ty) & (tx < tz)
+    use_y = ~(tx < ty) & (ty < tz)
+    axis = torch.where(use_x, 0, torch.where(use_y, 1, 2))
+    onehot = torch.nn.functional.one_hot(axis, 3).bool()
+    cell = cell + torch.where(onehot, step, 0)
+    t = torch.gather(tmax3, -1, axis[:, None])[:, 0]
+    tmax3 = tmax3 + torch.where(onehot, delta, 0.0)
+    moved = torch.gather(cell, -1, axis[:, None])[:, 0]
+    oob = (moved < 0) | (moved >= size3[axis])
+    return cell, tmax3, t, axis.to(torch.int32), oob
+
+
+def _gather3(grid_zyx, cell_xyz):
+    """grid[z, y, x] as int32 with 0 outside the grid."""
+    gz, gy, gx = grid_zyx.shape
+    x, y, z = cell_xyz.unbind(-1)
+    inb = (x >= 0) & (x < gx) & (y >= 0) & (y < gy) & (z >= 0) & (z < gz)
+    flat = (torch.clamp(z, 0, gz - 1).long() * (gy * gx)
+            + torch.clamp(y, 0, gy - 1).long() * gx
+            + torch.clamp(x, 0, gx - 1).long())
+    vals = grid_zyx.reshape(-1)[flat].to(torch.int32)
+    return torch.where(inb, vals, 0)
+
+
+def _cell_setup(entry, stepf, rdir, hi):
+    """First cell and crossing t's of a DDA level entered at ``entry``
+    (in that level's cell units)."""
+    cell = torch.minimum(torch.clamp(torch.floor(entry).to(torch.int32), min=0), hi)
+    tmax3 = ((cell.to(torch.float32) - entry) + torch.clamp(stepf, min=0.0)) * rdir
+    tmax3 = torch.where(torch.isnan(tmax3), BIG_F32, tmax3)
+    return cell, torch.clamp(tmax3, max=BIG_F32)
+
+
+def intersect_volume_local(grid, brick_occ, origin_l, dir_l, vpu: float,
+                           max_steps: int = MAX_STEPS):
+    """Two-level DDA of N local-space rays through one voxel volume.
+
+    Args:
+      grid:      (Z, Y, X) integer material ids, 0 = air.
+      brick_occ: (BZ, BY, BX) integer per-brick solid count.
+      origin_l:  (N, 3) float32 ray origins in volume-local space.
+      dir_l:     (N, 3) float32 unit ray directions in local space.
+      vpu:       voxels per world unit.
+
+    Returns a dict of (N,) tensors: t (BIG_F32 = miss), mat, axis (last
+    step axis), step_sign (N, 3), steps, valid (slab hit mask), slab_tmin,
+    slab_tmax, entry_axis (slab entry axis), and resolved (False where the
+    step budget ran out; such a ray is a miss).
+    """
+    dev = origin_l.device
+    n = origin_l.shape[0]
+    gz, gy, gx = grid.shape
+    bz, by, bx = brick_occ.shape
+    vsize3 = torch.tensor([gx, gy, gz], dtype=torch.int32, device=dev)
+    bsize3 = torch.tensor([bx, by, bz], dtype=torch.int32, device=dev)
+    fsize3 = torch.full((3,), BRICK, dtype=torch.int32, device=dev)
+    vpu_t = torch.tensor(vpu, dtype=torch.float32, device=dev)
+    size_l = vsize3.to(torch.float32) / vpu_t
+
+    tmin, tmax, entry_axis, slab_hit = slab_test(origin_l, dir_l, size_l)
+
+    bpu = vpu_t / torch.tensor(float(BRICK), device=dev)
+    rbpu = torch.reciprocal(bpu)
+    stepf = sign_dir(dir_l)
+    stepi = stepf.to(torch.int32)
+    rdir = torch.reciprocal(dir_l)
+    # clamp inf (axis-parallel rays) so tmax += delta never meets 0*inf
+    delta = torch.clamp(torch.abs(rdir), max=BIG_F32)
+
+    entry = _fma(dir_l, tmin[:, None], origin_l) * bpu
+    bcell, btmax = _cell_setup(entry, stepf, rdir, bsize3 - 1)
+
+    zeros_f = torch.zeros((n,), dtype=torch.float32, device=dev)
+    zeros_i = torch.zeros((n,), dtype=torch.int32, device=dev)
+    mode = torch.where(slab_hit, _BRICK, _MISS).to(torch.int32)
+    bt = zeros_f
+    fcell = torch.zeros((n, 3), dtype=torch.int32, device=dev)
+    ftmax = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    ft = zeros_f
+    b_entry = zeros_f
+    axis = entry_axis
+    steps = zeros_i
+    hit_t = torch.full((n,), BIG_F32, dtype=torch.float32, device=dev)
+    hit_mat = zeros_i
+    hit_entry = torch.zeros((n,), dtype=torch.bool, device=dev)
+    exhausted_any = torch.zeros((n,), dtype=torch.bool, device=dev)
+
+    def active(m):
+        return (m == _BRICK) | (m == _FINE)
+
+    for it in range(2 * max_steps):
+        if it % _SYNC_EVERY == 0 and not bool(
+                (active(mode) & (steps < max_steps)).any()):
+            break
+        in_budget = steps < max_steps
+        is_brick = (mode == _BRICK) & in_budget
+        is_fine = (mode == _FINE) & in_budget
+        # budget exhausted -> miss (vv.cpp loop bound)
+        exhausted = active(mode) & ~in_budget
+        exhausted_any = exhausted_any | exhausted
+        mode = torch.where(exhausted, _MISS, mode)
+
+        # ---- brick phase: test occupancy ----------------------------------
+        occ = _gather3(brick_occ, bcell) > 0
+        enter_fine = is_brick & occ
+        brick_step = is_brick & ~occ
+
+        # fine setup for rays entering an occupied brick (vv.cpp:237-251)
+        brick_entry_t = _fma(bt, rbpu, tmin)
+        p = _fma(dir_l, brick_entry_t[:, None], origin_l)
+        fentry = _fma(-bcell.to(torch.float32), rbpu, p) * vpu_t
+        fcell_new, ftmax_new = _cell_setup(fentry, stepf, rdir, fsize3 - 1)
+
+        # ---- fine phase: test voxel ---------------------------------------
+        voxel = _gather3(grid, bcell * BRICK + fcell)
+        fine_hit = is_fine & (voxel != 0)
+
+        nfcell, nftmax, nft, nfaxis, f_oob = _aw_step(
+            fcell, ftmax, stepi, delta, fsize3)
+        fine_step = is_fine & ~fine_hit
+        fine_exit = fine_step & f_oob       # leave brick -> brick step (same iter)
+        fine_move = fine_step & ~fine_exit
+
+        # brick step for: empty-brick rays and fine-exit rays (shared unit)
+        do_bstep = brick_step | fine_exit
+        nbcell, nbtmax, nbt, nbaxis, b_oob = _aw_step(
+            bcell, btmax, stepi, delta, bsize3)
+
+        # ---- merge ---------------------------------------------------------
+        hit_t = torch.where(fine_hit, b_entry + ft / vpu_t, hit_t)
+        hit_mat = torch.where(fine_hit, voxel, hit_mat)
+        hit_entry = torch.where(fine_hit, steps == 0, hit_entry)
+
+        mode = torch.where(fine_hit, _HIT, mode)
+        mode = torch.where(do_bstep & b_oob, _MISS, mode)
+        mode = torch.where(enter_fine, _FINE, mode)
+        mode = torch.where(fine_exit & ~b_oob, _BRICK, mode).to(torch.int32)
+
+        bs = do_bstep[:, None]
+        bcell = torch.where(bs, nbcell, bcell)
+        btmax = torch.where(bs, nbtmax, btmax)
+        bt = torch.where(do_bstep, nbt, bt)
+
+        ef, fm = enter_fine[:, None], fine_move[:, None]
+        fcell = torch.where(ef, fcell_new, torch.where(fm, nfcell, fcell))
+        ftmax = torch.where(ef, ftmax_new, torch.where(fm, nftmax, ftmax))
+        ft = torch.where(enter_fine, 0.0, torch.where(fine_move, nft, ft))
+        b_entry = torch.where(enter_fine, brick_entry_t, b_entry)
+
+        axis = torch.where(do_bstep, nbaxis, torch.where(fine_move, nfaxis, axis))
+        steps = steps + (do_bstep | fine_move).to(torch.int32)
+
+    hit = mode == _HIT
+    # Entry-voxel hits keep the slab entry axis/normal (vv.cpp:159)
+    final_axis = torch.where(hit_entry, entry_axis, axis)
+    return dict(
+        t=torch.where(hit, hit_t, BIG_F32),
+        mat=torch.where(hit, hit_mat, 0),
+        axis=final_axis,
+        step_sign=stepf,
+        steps=steps,
+        valid=slab_hit,
+        entry_axis=entry_axis,
+        slab_tmin=tmin,
+        slab_tmax=tmax,
+        resolved=~(exhausted_any | active(mode)),
+    )
