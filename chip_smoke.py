@@ -2,19 +2,33 @@
 """Smoke test of the PyTorch / CUDA port on one NVIDIA GPU.
 
 Builds the port's CUDA kernels from the sources in this checkout, drives
-the port's main path -- the bench.py frame: dense 64^3 noise volume,
-orbit camera, 1920x1088, flat (`render_mega`) and lit
-(`render_lambert_mega`) -- through its public entry points, holds every
+the port's two main paths through their public entry points, holds every
 kernel against its plain PyTorch version on the same inputs, and times
-both.  It prints one line per phase, then the card's name and power limit
-as nvidia-smi reports them, then
+both:
+
+- serving: the bench.py frame -- dense 64^3 noise volume, orbit camera,
+  1920x1088, flat (`render_mega`) and lit (`render_lambert_mega`);
+- training: `Trainer.fit` with the kernel backend at the width of
+  bench_suite.py's inverse_128_32views -- a 128^3 sigma + albedo grid, 32
+  ring views of 64x64 (131,072 rays a step), Adam lr 1e-2 -- after the
+  integrate kernels are checked on bench_suite.py's diff_lambert_512 scene
+  (sparse 64^3 blob, 512x512 camera rays) and the z-slab sequencer.
+
+Each main path runs with the launch counts set to 0 just before it and
+read just after.  It prints one line per phase, then the card's name and
+power limit as nvidia-smi reports them, then
 
     {"kernels": [{"name", "route", "source", "replaces", "launches",
-                  "max_abs_err", "ms", "plain_ms"}, ...]}
+                  "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                  "library_ms"}, ...]}
 
-and, as the last line, {"ok": true, "device": {...}}.  Any failed check
-raises, and the script exits non-zero without printing a result; so does
-a machine without a CUDA device, or a directory without the repository.
+and, as the last line, {"ok": true, "device": {...}}.  `bound_ms` is the
+larger of the bytes the call must move over 3.35 TB/s and its FP32
+operations (counted from this run's data, per-unit counts read off the
+kernel sources) over 67 TFLOP/s, the H100 SXM's published peaks.
+Any failed check raises, and the script exits non-zero without printing a
+result; so does a machine without a CUDA device, or a directory without
+the repository.
 
 Run from the repository root:  python3 chip_smoke.py
 """
@@ -40,6 +54,27 @@ T_ATOL = 1e-5       # depth, kernel vs plain
 LSB = 1             # image, kernel vs plain (expf may differ by an ulp)
 SLOPE_RTOL = 0.10   # per-frame times at two frame counts agree within this
 
+# integrate kernels (B6/B7) vs their plain versions on identical inputs
+INT_ATOL = 1e-5     # color, trans, depth (expf may differ by an ulp)
+GRAD_RTOL = 1e-4    # x max|g|: atomics and index_add_ sum in run-dependent orders
+# render_density_slabs(n_slabs=2) vs render_density_mega (the CPU tests')
+SLAB_ATOL = 5e-5
+SLAB_GRAD_RTOL = 5e-3
+FD_RTOL = 0.05      # central difference vs the kernel gradient
+DIFF_G, DIFF_W, DIFF_VPU, T_EPS = 64, 512, 20.0, 1e-4
+TRAIN_G, TRAIN_VIEWS, TRAIN_PX, TRAIN_VPU = 128, 32, 64, 20.0
+
+# bounds: H100 SXM published peaks (HBM3 rate, FP32 non-tensor rate)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_PER_S = 67e12
+# FP32 operations per unit of work, counted off the kernel sources
+MEGA_OPS_PER_RAY = 120          # raygen, slab test, DDA set-up, shading (mega.cu)
+MEGA_OPS_PER_STEP = 8           # one DDA step, brick entry amortized
+INT_OPS_PER_RAY = 65            # slab test, signs, first brick (diffint.cu)
+INT_OPS_PER_BRICK_STEP = 38     # brick planes, [tn, tf], exit axis
+INT_OPS_PER_VISIT = 43          # fine entry of an occupied brick
+INT_OPS_PER_FINE_STEP = {"fwd": 29, "bwd": 60}
+
 
 def log(msg):
     print(msg, flush=True)
@@ -63,6 +98,14 @@ def bench_camera(theta, aspect):
 def require(cond, what):
     if not cond:
         raise AssertionError(what)
+
+
+def bound(nbytes, ops):
+    """(least ms, what bounds it) for moving nbytes and doing ops FP32
+    operations at the card's published peaks."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FP32_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def cuda_ms(fn, reps):
@@ -143,7 +186,7 @@ def phase_main_path(mv):
         f"{float(flat['steps'][hit].float().mean()):.2f}, "
         f"sunlit share of hits {lit_frac:.4f}")
     require(0.0 < lit_frac < 1.0, "lit frame is all shadow or all sun")
-    return launches
+    return launches, int(flat["steps"].sum())
 
 
 def phase_small_reference():
@@ -215,7 +258,13 @@ def phase_trace_rays(mv):
                                                        fetch_mat=True), 2)
     log(f"[trace_rays] kernel {ms:.4f} ms, plain {plain_ms:.2f} ms per "
         f"{N_RAYS} rays ({N_RAYS / ms * 1e3:.4g} vs {N_RAYS / plain_ms * 1e3:.4g} rays/s)")
-    return dt, ms, plain_ms
+    tb = mv.tables
+    nbytes = N_RAYS * (24 + 8) + tb.bocc.numel() * 4 + tb.occw.numel() * 4 + tb.matb.numel()
+    b = bound(nbytes, N_RAYS * MEGA_OPS_PER_RAY
+              + int(kr["steps"].sum()) * MEGA_OPS_PER_STEP)
+    log(f"[trace_rays] bound {b[0]:.4f} ms ({b[1]}): {nbytes} bytes, "
+        f"{int(kr['steps'].sum())} DDA steps")
+    return dict(err=dt, ms=ms, plain_ms=plain_ms, bound=b)
 
 
 def phase_flat(tag, mv, cam):
@@ -288,6 +337,296 @@ def phase_timing(mv):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Training slice: the integrate kernels B6 / B7 and Trainer.fit
+# ---------------------------------------------------------------------------
+
+def blob_field(g, seed, peak, scale):
+    """bench_suite.py's sparse blob: a Gaussian with exact zeros outside
+    (~15 % of voxels occupied), random density inside, random albedo."""
+    rng = np.random.RandomState(seed)
+    zz, yy, xx = np.meshgrid(*[np.linspace(0, 1, g)] * 3, indexing="ij")
+    r2 = (xx - 0.5) ** 2 + (yy - 0.5) ** 2 + (zz - 0.5) ** 2
+    blob = peak * np.exp(-r2 * 60.0)
+    sigma = np.where(blob > 0.05, rng.rand(g, g, g) * blob * scale, 0.0)
+    albedo = rng.rand(g, g, g, 3)
+    return (torch.tensor(sigma, dtype=torch.float32, device="cuda"),
+            torch.tensor(albedo, dtype=torch.float32, device="cuda"))
+
+
+def diff_scene():
+    """diff_lambert_512 (bench_suite.py:183-210) made with numpy: the 64^3
+    blob and 512x512 camera rays in 32x32-pixel tile order, taken as
+    volume-local rays, with random targets."""
+    from voxel_tracer_tpu_torch.models.camera import Camera, rays_for_image
+    from voxel_tracer_tpu_torch.ops.cuda import diffint
+    sigma, albedo = blob_field(DIFF_G, 0, 40.0, 0.25)
+    cam = Camera.create((2.0, 1.4, -2.4), (0.0, 0.0, 0.0), 1.0)
+    o, d = (diffint.tile_raster(x, DIFF_W, DIFF_W).contiguous()
+            for x in rays_for_image(cam, DIFF_W, DIFF_W))
+    n = o.shape[0]
+    target = torch.from_numpy(np.random.RandomState(7).rand(n, 3).astype(np.float32)).cuda()
+    return dict(sigma=sigma, albedo=albedo, o=o, d=d, target=target, vpu=DIFF_VPU)
+
+
+def _packed(sigma, albedo):
+    from voxel_tracer_tpu_torch.ops.cuda import diffint
+    tables = diffint._pack_tables(sigma.detach(), albedo.detach())
+    return tables, diffint.occ_words(tables[0]), diffint.brick_dims(sigma.shape)
+
+
+def _maxabs(t):
+    return float(t.abs().max()) if t.numel() else 0.0
+
+
+def _int_bytes(n, tables, mode):
+    """Bytes each integrate call must move: rays, carry (and cotangents and
+    totals) read once, the four tables read once, the outputs written once."""
+    per_ray = 24 + 20 + (24 if mode == "fwd" else 40)
+    table_bytes = sum(t.numel() for t in tables) * 4
+    return n * per_ray + table_bytes * (1 if mode == "fwd" else 2)
+
+
+def _int_ops(n, stats, mode):
+    return (n * INT_OPS_PER_RAY + stats["brick_steps"] * INT_OPS_PER_BRICK_STEP
+            + stats["brick_visits"] * INT_OPS_PER_VISIT
+            + stats["fine_steps"] * INT_OPS_PER_FINE_STEP[mode])
+
+
+def integrate_pair(tag, sigma, albedo, o, d, vpu, target, reps):
+    """B6 and B7 against their plain versions on the same inputs (the
+    cotangents of mean((color - target)^2)), timed both; returns errors,
+    times, bounds and the march's work."""
+    from voxel_tracer_tpu_torch.ops.cuda import diffint
+    tables, occ, bsize = _packed(sigma, albedo)
+    n = o.shape[0]
+    carry = diffint._init_carry(n, o.device)
+    kw = dict(bsize=bsize, vpu=vpu, t_eps=T_EPS)
+    k = diffint.integrate_fwd_tiles(0, occ, o, d, carry, *tables, **kw)
+    stats = {}
+    p = diffint.integrate_fwd_plain(0, occ, o, d, carry, *tables, stats=stats, **kw)
+    torch.cuda.synchronize()
+    require(bool(torch.equal(k[5], p[5])), f"{tag}: flags differ")
+    err_f = max(float((a - b).abs().max()) for a, b in zip(k[:5], p[:5]))
+    marched = float((k[5] == 2).float().mean())
+    log(f"[{tag} fwd] {n} rays, {bsize} bricks: kernel vs plain max |d| "
+        f"{err_f:.3g} (limit {INT_ATOL}), flags equal, marched {marched:.4f}; "
+        f"work {stats}")
+    require(err_f <= INT_ATOL, f"{tag}: forward differs by {err_f}")
+    require(bool(torch.isfinite(k[0]).all() and torch.isfinite(k[4]).all()),
+            f"{tag}: non-finite forward")
+
+    color = torch.stack(k[:3], dim=-1)
+    g_color = 2.0 * (color - target) / color.numel()
+    zero = torch.zeros(n, device=o.device)
+    cts = tuple(g_color[:, i].contiguous() for i in range(3)) + (zero, zero)
+    kb = diffint.integrate_bwd_tiles(0, occ, o, d, carry, *tables, cts, k[:5], **kw)
+    pb = diffint.integrate_bwd_plain(0, occ, o, d, carry, *tables, cts, k[:5], **kw)
+    torch.cuda.synchronize()
+    empty_brick = torch.repeat_interleave(
+        ((occ[:, None] >> torch.arange(32, device=occ.device)) & 1).reshape(-1)
+        [:tables[0].shape[0] // 4] == 0, 4)
+    err_b, rel_b = 0.0, 0.0
+    for name, a, b in zip(("d_sigma", "d_albedo_r", "d_albedo_g", "d_albedo_b"), kb, pb):
+        scale = float(b.abs().max())
+        e = float((a - b).abs().max())
+        err_b, rel_b = max(err_b, e), max(rel_b, e / max(scale, 1e-30))
+        require(scale > 0.0, f"{tag}: {name} is all zero")
+        require(e <= GRAD_RTOL * scale, f"{tag}: {name} differs by {e} (max|g| {scale})")
+        require(_maxabs(a[empty_brick]) == 0.0,
+                f"{tag}: kernel {name} nonzero in an empty brick")
+        require(_maxabs(b[empty_brick]) == 0.0,
+                f"{tag}: plain {name} nonzero in an empty brick")
+    require(_maxabs(kb[0][tables[0] == 0.0]) == 0.0,
+            f"{tag}: d_sigma nonzero where sigma is 0")
+    log(f"[{tag} bwd] kernel vs plain max |d| {err_b:.3g}, {rel_b:.3g} x max|g| "
+        f"(limit {GRAD_RTOL}); {int(empty_brick.sum()) // 4} empty bricks exactly 0")
+
+    out = dict(err_fwd=err_f, err_bwd=err_b, stats=stats, n=n)
+    for mode, fn_k, fn_p, args in (
+            ("fwd", diffint.integrate_fwd_tiles, diffint.integrate_fwd_plain,
+             (0, occ, o, d, carry, *tables)),
+            ("bwd", diffint.integrate_bwd_tiles, diffint.integrate_bwd_plain,
+             (0, occ, o, d, carry, *tables, cts, k[:5]))):
+        ms = cuda_ms(lambda i: fn_k(*args, **kw), reps)
+        dev_ms = kernel_device_ms(lambda: fn_k(*args, **kw), reps,
+                                  "integrate_kernel")
+        plain_ms = cuda_ms(lambda i: fn_p(*args, **kw), 1)
+        b = bound(_int_bytes(n, tables, mode), _int_ops(n, stats, mode))
+        dev = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+        log(f"[{tag} {mode}] kernel {ms:.4f} ms per call (CUDA events over {reps} "
+            f"calls; device time per launch {dev}), plain {plain_ms:.2f} ms; "
+            f"bound {b[0]:.4f} ms ({b[1]}); {n / ms * 1e3:.4g} rays/s")
+        out[mode] = dict(ms=ms, plain_ms=plain_ms, bound=b)
+    return out
+
+
+def phase_diffint(scene):
+    """[diffint fwd] + [diffint bwd]: the diff_lambert_512 scene."""
+    return integrate_pair("diffint", scene["sigma"], scene["albedo"], scene["o"],
+                          scene["d"], scene["vpu"], scene["target"], 20)
+
+
+def phase_finite_difference(scene):
+    """Central difference of sum(color) at the voxel of largest |d/d sigma|,
+    through render_density_mega on the card (launches B6 and B7)."""
+    from voxel_tracer_tpu_torch.ops.cuda import diffint
+    a, o, d = scene["albedo"], scene["o"], scene["d"]
+
+    def loss(s):
+        return diffint.render_density_mega(s, a, o, d, scene["vpu"],
+                                           t_eps=T_EPS)["color"].double().sum()
+
+    s = scene["sigma"].clone().requires_grad_()
+    loss(s).backward()
+    g = s.grad
+    idx = int(g.abs().argmax())
+    # stay on one side of the clamp at sigma = 0
+    eps = min(1e-2, 0.5 * float(scene["sigma"].view(-1)[idx]))
+    with torch.no_grad():
+        sp, sm = scene["sigma"].clone(), scene["sigma"].clone()
+        sp.view(-1)[idx] += eps
+        sm.view(-1)[idx] -= eps
+        fd = (float(loss(sp)) - float(loss(sm))) / (2 * eps)
+    gi = float(g.view(-1)[idx])
+    log(f"[diffint fd] voxel {idx}, eps {eps:.3g}: kernel grad {gi:.6g}, "
+        f"central difference {fd:.6g} (limit {FD_RTOL:.0%})")
+    require(abs(fd - gi) < FD_RTOL * max(abs(fd), abs(gi), 1e-6),
+            "finite difference disagrees with the kernel gradient")
+
+
+def phase_slabs(scene):
+    """[slabs] render_density_slabs(n_slabs=2) vs render_density_mega on the
+    card: forward and gradients of mean((color - target)^2)."""
+    from voxel_tracer_tpu_torch.ops.cuda import diffint
+    outs, grads = [], []
+    for fn, args in ((diffint.render_density_mega, ()),
+                     (diffint.render_density_slabs, (2,))):
+        s = scene["sigma"].clone().requires_grad_()
+        a = scene["albedo"].clone().requires_grad_()
+        out = fn(s, a, scene["o"], scene["d"], scene["vpu"], *args, t_eps=T_EPS)
+        ((out["color"] - scene["target"]) ** 2).mean().backward()
+        outs.append(out)
+        grads.append((s.grad, a.grad))
+    torch.cuda.synchronize()
+    e_out = max(float((outs[0][k] - outs[1][k]).detach().abs().max())
+                for k in ("color", "trans", "depth"))
+    e_grad = max(float((gm - gs).abs().max()) / float(gm.abs().max())
+                 for gm, gs in zip(*grads))
+    log(f"[slabs] 2 slabs vs one call: outputs max |d| {e_out:.3g} (limit "
+        f"{SLAB_ATOL}), grads {e_grad:.3g} x max|g| (limit {SLAB_GRAD_RTOL})")
+    require(e_out <= SLAB_ATOL, "slab outputs differ")
+    require(e_grad <= SLAB_GRAD_RTOL, "slab gradients differ")
+
+
+def train_views():
+    """inverse_128_32views (bench_suite.py:480-506): 32 ring views of
+    64x64 pixels around the 128^3 grid, rays in tile order (numpy)."""
+    from voxel_tracer_tpu_torch.models.camera import Camera, rays_for_image
+    from voxel_tracer_tpu_torch.ops.cuda import diffint
+    center = TRAIN_G / (2 * TRAIN_VPU)
+    os_, ds_ = [], []
+    for v in range(TRAIN_VIEWS):
+        th = 2 * np.pi * v / TRAIN_VIEWS
+        r = 2.2 * TRAIN_G / TRAIN_VPU / 4
+        pos = (center + r * np.cos(th), center * 1.35, center + r * np.sin(th))
+        cam = Camera.create(pos, (center,) * 3, 1.0)
+        o, d = rays_for_image(cam, TRAIN_PX, TRAIN_PX, device="cpu")
+        os_.append(diffint.tile_raster(o.numpy(), TRAIN_PX, TRAIN_PX))
+        ds_.append(diffint.tile_raster(d.numpy(), TRAIN_PX, TRAIN_PX))
+    return (np.ascontiguousarray(np.concatenate(os_)),
+            np.ascontiguousarray(np.concatenate(ds_)))
+
+
+def kernel_device_ms(fn, reps, name):
+    """Mean device time of the kernels whose name contains ``name`` over
+    ``reps`` calls of fn(), from torch.profiler's kernel spans (None if
+    the profiler shows no device events)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
+    return sum(spans) / len(spans) / 1e3 if spans else None
+
+
+def device_busy(fn):
+    """(wall ms, device-busy ms or None, kernels) of fn() under
+    torch.profiler: busy is the union of the device kernels' spans."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, -float("inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return wall, (busy / 1e3 if spans else None), len(spans)
+
+
+def phase_train():
+    """[train] The training main path: Trainer.fit, kernel backend, at the
+    width of inverse_128_32views, on targets rendered by the kernel forward
+    of a known field.  Launch counts at 0 just before, read just after."""
+    from voxel_tracer_tpu_torch.ops.cuda import diffint
+    from voxel_tracer_tpu_torch.trainer import TrainConfig, Trainer
+    o, d = train_views()
+    n = o.shape[0]
+    true_s, true_a = blob_field(TRAIN_G, 1, 40.0, 0.25)
+    with torch.no_grad():
+        c = diffint.render_density_mega(true_s, true_a, torch.from_numpy(o).cuda(),
+                                        torch.from_numpy(d).cuda(), TRAIN_VPU,
+                                        t_eps=T_EPS)["color"].cpu().numpy()
+    cfg = TrainConfig(grid_size=(TRAIN_G,) * 3, vpu=TRAIN_VPU, lr=1e-2, steps=4,
+                      rays_per_batch=n, backend="kernel")
+    tr = Trainer(cfg)
+    losses = []
+
+    def fit(extra):
+        tr.cfg.steps += extra
+        losses.extend(tr.fit(o, d, c, log_every=1, log_fn=lambda s: None))
+
+    diffint.reset_launch_counts()
+    fit(0)                                   # 4 steps: warm-up
+    counts = (6, 12)
+    ms = [cuda_ms(lambda i, k=k: fit(k), 1) / k for k in counts]
+    wall, busy, kernels = device_busy(lambda: fit(3))
+    torch.cuda.synchronize()
+    launches = dict(diffint.KERNEL_LAUNCHES)
+    slope = (ms[1] * counts[1] - ms[0] * counts[0]) / (counts[1] - counts[0])
+    idle = f"{1.0 - busy / wall:.4f}" if busy is not None else "not measured"
+    log(f"[train] Trainer.fit, kernel backend, {TRAIN_G}^3, {TRAIN_VIEWS} views "
+        f"of {TRAIN_PX}x{TRAIN_PX}, {n} rays/step: {tr.step} steps, loss "
+        f"{losses[0]:.6g} -> {losses[-1]:.6g}; launches {launches}")
+    log(f"[train] {ms[0]:.4f} ms/step over {counts[0]} steps, {ms[1]:.4f} over "
+        f"{counts[1]}; differential {slope:.4f} ms/step; {n / ms[1] * 1e3:.4g} rays/s; "
+        f"profiled 3 steps: wall {wall:.3f} ms, device busy "
+        f"{'not measured' if busy is None else f'{busy:.3f} ms'} in {kernels} "
+        f"kernels, idle share {idle}")
+    require(all(np.isfinite(losses)), "non-finite training loss")
+    require(losses[-1] < losses[0], f"loss did not fall: {losses[0]} -> {losses[-1]}")
+    for name, k in launches.items():
+        require(k > 0, f"kernel {name} was not launched on the training path")
+    require(bool(torch.isfinite(tr.params["sigma"]).all()), "non-finite sigma")
+
+    # both kernels at the main path's shapes: the trained grid, all rays
+    res = integrate_pair("train shapes", tr.params["sigma"].detach(),
+                         tr.params["albedo"].detach(), torch.from_numpy(o).cuda(),
+                         torch.from_numpy(d).cuda(), TRAIN_VPU,
+                         torch.from_numpy(c).cuda(), 10)
+    res["launches"] = launches
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -304,9 +643,9 @@ def main():
 
     vol = VoxelVolume.noise_filled((64, 64, 64), pos=(0, 0, 0), vpu=20.0)
     mv = mega.MegaVolume(vol, device="cuda")
-    launches = phase_main_path(mv)
+    launches, frame_steps = phase_main_path(mv)
     err_cam = phase_small_reference()
-    err_rays, rays_ms, rays_plain_ms = phase_trace_rays(mv)
+    rays = phase_trace_rays(mv)
     err_cam = max(err_cam, phase_flat("flat frame", mv, bench_camera(0.0, W / H)))
     err_cam = max(err_cam, phase_lit(mv))
     t0 = time.perf_counter()
@@ -317,20 +656,46 @@ def main():
     err_cam = max(err_cam, phase_flat("large grid", mv_big, bench_camera(0.0, W / H)))
     del mv_big
     times = phase_timing(mv)
+    tb = mv.tables
+    cam_bytes = (W * H * 12 + 29 * 4 + tb.bocc.numel() * 4 + tb.occw.numel() * 4
+                 + tb.matb.numel() + tb.pal.numel() * 4)
+    cam_bound = bound(cam_bytes, W * H * MEGA_OPS_PER_RAY + frame_steps * MEGA_OPS_PER_STEP)
+    log(f"[timing] camera kernel bound {cam_bound[0]:.4f} ms ({cam_bound[1]}): "
+        f"{cam_bytes} bytes, {frame_steps} DDA steps")
+
+    scene = diff_scene()
+    diffint_res = phase_diffint(scene)
+    phase_finite_difference(scene)
+    phase_slabs(scene)
+    del scene
+    train = phase_train()
 
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(smi)
     src = "voxel_tracer_tpu_torch/csrc/mega.cu"
-    log(json.dumps({"kernels": [
-        {"name": "mega_camera", "route": "cuda", "source": src,
-         "replaces": "voxel_tracer_tpu/ops/pallas/mega.py:2536",
-         "launches": launches["mega_camera"], "max_abs_err": err_cam,
-         "ms": times["flat kernel"], "plain_ms": times["flat plain"]},
-        {"name": "mega_rays", "route": "cuda", "source": src,
-         "replaces": "voxel_tracer_tpu/ops/pallas/mega.py:2810",
-         "launches": launches["mega_rays"], "max_abs_err": err_rays,
-         "ms": rays_ms, "plain_ms": rays_plain_ms},
-    ]}))
+    isrc = "voxel_tracer_tpu_torch/csrc/diffint.cu"
+    kernels = [
+        dict(name="mega_camera", route="cuda", source=src,
+             replaces="voxel_tracer_tpu/ops/pallas/mega.py:2536",
+             launches=launches["mega_camera"], max_abs_err=err_cam,
+             ms=times["flat kernel"], plain_ms=times["flat plain"],
+             bound_ms=cam_bound[0], bound_by=cam_bound[1], library_ms=None),
+        dict(name="mega_rays", route="cuda", source=src,
+             replaces="voxel_tracer_tpu/ops/pallas/mega.py:2810",
+             launches=launches["mega_rays"], max_abs_err=rays["err"],
+             ms=rays["ms"], plain_ms=rays["plain_ms"], bound_ms=rays["bound"][0],
+             bound_by=rays["bound"][1], library_ms=None)]
+    for name, mode, line, err in (
+            ("integrate_fwd", "fwd", 511, max(train["err_fwd"], diffint_res["err_fwd"])),
+            ("integrate_bwd", "bwd", 544, max(train["err_bwd"], diffint_res["err_bwd"]))):
+        kernels.append(dict(
+            name=name, route="cuda", source=isrc,
+            replaces=f"voxel_tracer_tpu/ops/pallas/diffint.py:{line}",
+            launches=train["launches"][name], max_abs_err=err,
+            ms=train[mode]["ms"], plain_ms=train[mode]["plain_ms"],
+            bound_ms=train[mode]["bound"][0], bound_by=train[mode]["bound"][1],
+            library_ms=None))
+    log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,12 +1,16 @@
-"""The CUDA kernel of the port vs its plain PyTorch version, on the card.
+"""The CUDA kernels of the port vs their plain PyTorch versions, on the card.
 
 Marked `cuda`: each test skips when no CUDA device is present (decided in
 the test, never at import).  Run on a machine with an NVIDIA GPU:
 
-    python -m pytest tests/test_torch_cuda.py -q
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-Tolerances: hits, materials, axes, steps and resolved flags equal; depth
-within 1e-5; image within 1 LSB (expf may differ by an ulp).
+Tolerances: mega kernels: hits, materials, axes, steps and resolved flags
+equal; depth within 1e-5; image within 1 LSB (expf may differ by an ulp).
+Integrate kernels: flags equal; color, trans and depth within 1e-5 (expf
+may differ by an ulp); gradients within 1e-4 x max|g| (the kernel's
+atomics and `index_add_` sum in orders that change from run to run), and
+exactly 0 in empty bricks.
 """
 
 import numpy as np
@@ -15,7 +19,7 @@ import torch
 
 from voxel_tracer_tpu_torch.models.camera import Camera
 from voxel_tracer_tpu_torch.models.volume import VoxelVolume
-from voxel_tracer_tpu_torch.ops.cuda import mega
+from voxel_tracer_tpu_torch.ops.cuda import diffint, mega
 
 pytestmark = pytest.mark.cuda
 
@@ -106,3 +110,153 @@ def test_kernel_rejects_bad_input(cuda):
         mega.trace_rays(o.t().contiguous().t(), o, mv.tables)
     with pytest.raises(ValueError):
         mega.trace_rays(o, o.cpu(), mv.tables)
+
+
+# ---------------------------------------------------------------------------
+# B6 / B7: the integrate kernels
+# ---------------------------------------------------------------------------
+
+def _blob_scene(dev, empty=False, g=32):
+    rng = np.random.RandomState(11)
+    zz, yy, xx = np.meshgrid(*[np.linspace(0, 1, g)] * 3, indexing="ij")
+    r2 = (xx - 0.5) ** 2 + (yy - 0.5) ** 2 + (zz - 0.5) ** 2
+    blob = 30.0 * np.exp(-r2 * 60.0)
+    sigma = np.where(blob > 0.05, rng.rand(g, g, g) * blob * 0.3, 0.0)
+    if empty:
+        sigma[:] = 0.0
+    albedo = rng.rand(g, g, g, 3)
+    tables = diffint._pack_tables(torch.tensor(sigma, dtype=torch.float32),
+                                  torch.tensor(albedo, dtype=torch.float32))
+    tables = tuple(t.to(dev) for t in tables)
+    return tables, diffint.occ_words(tables[0]), (g // 8,) * 3, float(g)
+
+
+def _mixed_rays(dev, n=4096):
+    """Rays from all sides in both dz signs; the first 96 are axis-parallel
+    with +-0 components."""
+    rng = np.random.RandomState(5)
+    o = rng.uniform(-0.6, 1.6, (n, 3)).astype(np.float32)
+    tgt = rng.uniform(0.2, 0.8, (n, 3)).astype(np.float32)
+    d = tgt - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    axes = np.array([[1, 0, 0], [0, 1, 0], [0, 0, 1], [-1, 0, 0], [0, -1, 0],
+                     [0, 0, -1]], np.float32)
+    d[:96] = np.where(axes == 0, np.where(rng.rand(6, 3) < 0.5, -0.0, 0.0),
+                      axes)[np.arange(96) % 6]
+    o[:96] = 0.5 - 1.2 * d[:96] + rng.uniform(-0.3, 0.3, (96, 3)) * (d[:96] == 0)
+    return torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+
+
+def _carry(n, dev, trivial):
+    if trivial:
+        return diffint._init_carry(n, dev)
+    rng = np.random.RandomState(2)
+    c = rng.uniform(0.0, 0.5, (5, n)).astype(np.float32)
+    c[0] += 0.5
+    return tuple(torch.from_numpy(x).to(dev) for x in c)
+
+
+@pytest.mark.parametrize("quad", [0, 1, -1])
+@pytest.mark.parametrize("trivial_carry", [True, False])
+@pytest.mark.parametrize("t_eps", [0.0, 1e-3])
+def test_integrate_kernels_match_plain(cuda, quad, trivial_carry, t_eps):
+    tables, occ, bsize, vpu = _blob_scene(cuda)
+    o, d = _mixed_rays(cuda)
+    n = o.shape[0]
+    carry = _carry(n, cuda, trivial_carry)
+    kw = dict(bsize=bsize, vpu=vpu, t_eps=t_eps)
+    before = dict(diffint.KERNEL_LAUNCHES)
+    k = diffint.integrate_fwd_tiles(quad, occ, o, d, carry, *tables, **kw)
+    p = diffint.integrate_fwd_plain(quad, occ, o, d, carry, *tables, **kw)
+    assert torch.equal(k[5], p[5])
+    assert int((k[5] & 2).sum()) > n // 4
+    for a, b in zip(k[:5], p[:5]):
+        assert float((a - b).abs().max()) <= 1e-5
+    rng = np.random.RandomState(9)
+    cts = tuple(torch.from_numpy(x).to(cuda)
+                for x in rng.randn(5, n).astype(np.float32))
+    kb = diffint.integrate_bwd_tiles(quad, occ, o, d, carry, *tables, cts,
+                                     k[:5], **kw)
+    pb = diffint.integrate_bwd_plain(quad, occ, o, d, carry, *tables, cts,
+                                     k[:5], **kw)
+    assert diffint.KERNEL_LAUNCHES["integrate_fwd"] == before["integrate_fwd"] + 1
+    assert diffint.KERNEL_LAUNCHES["integrate_bwd"] == before["integrate_bwd"] + 1
+    empty = tables[0] == 0.0
+    for a, b in zip(kb, pb):
+        scale = float(b.abs().max())
+        assert scale > 0.0
+        assert float((a - b).abs().max()) <= 1e-4 * scale
+    assert float(kb[0][empty].abs().max()) == 0.0
+
+
+def test_integrate_kernels_empty_grid(cuda):
+    tables, occ, bsize, vpu = _blob_scene(cuda, empty=True)
+    assert int(occ.abs().sum()) == 0
+    o, d = _mixed_rays(cuda, 512)
+    carry = _carry(512, cuda, False)
+    cr, cg, cb, tr, dp, fl = diffint.integrate_fwd_tiles(
+        0, occ, o, d, carry, *tables, bsize=bsize, vpu=vpu)
+    for a, b in zip((tr, cr, cg, cb, dp), carry):
+        assert torch.equal(a, b)
+    grads = diffint.integrate_bwd_tiles(
+        0, occ, o, d, carry, *tables, carry, carry, bsize=bsize, vpu=vpu)
+    assert all(float(g.abs().max()) == 0.0 for g in grads)
+
+
+def test_integrate_kernels_no_rays(cuda):
+    tables, occ, bsize, vpu = _blob_scene(cuda)
+    o = torch.zeros((0, 3), device=cuda)
+    carry = _carry(0, cuda, True)
+    before = dict(diffint.KERNEL_LAUNCHES)
+    out = diffint.integrate_fwd_tiles(0, occ, o, o, carry, *tables,
+                                      bsize=bsize, vpu=vpu)
+    grads = diffint.integrate_bwd_tiles(0, occ, o, o, carry, *tables, carry,
+                                        carry, bsize=bsize, vpu=vpu)
+    assert diffint.KERNEL_LAUNCHES == before
+    assert all(x.shape == (0,) for x in out)
+    assert all(float(g.abs().max()) == 0.0 for g in grads)
+
+
+def test_integrate_kernels_reject_bad_input(cuda):
+    tables, occ, bsize, vpu = _blob_scene(cuda)
+    o, d = _mixed_rays(cuda, 128)
+    carry = _carry(128, cuda, True)
+    kw = dict(bsize=bsize, vpu=vpu)
+    with pytest.raises(TypeError):
+        diffint.integrate_fwd_tiles(0, occ, o.double(), d, carry, *tables, **kw)
+    with pytest.raises(ValueError):
+        diffint.integrate_fwd_tiles(0, occ, o, d.t().contiguous().t(), carry,
+                                    *tables, **kw)
+    with pytest.raises(ValueError):
+        diffint.integrate_fwd_tiles(0, occ.cpu(), o, d, carry, *tables, **kw)
+    with pytest.raises(ValueError):
+        diffint.integrate_bwd_tiles(0, occ, o, d, carry, *tables,
+                                    tuple(c.cpu() for c in carry), carry, **kw)
+
+
+def test_render_density_mega_on_the_card(cuda):
+    """The autograd path launches both kernels; the card and the CPU
+    plain version agree (forward 1e-5; grads 1e-4 x max|g|)."""
+    g = 32
+    rng = np.random.RandomState(4)
+    sigma = np.where(rng.rand(g, g, g) < 0.3, rng.rand(g, g, g) * 20, 0.0)
+    albedo = rng.rand(g, g, g, 3)
+    o, d = _mixed_rays("cpu", 2048)
+    target = torch.from_numpy(rng.rand(2048, 3).astype(np.float32))
+    grads = []
+    for dev in (cuda, "cpu"):
+        s = torch.tensor(sigma, dtype=torch.float32, device=dev, requires_grad=True)
+        a = torch.tensor(albedo, dtype=torch.float32, device=dev, requires_grad=True)
+        before = dict(diffint.KERNEL_LAUNCHES)
+        out = diffint.render_density_mega(s, a, o.to(dev), d.to(dev), float(g))
+        loss = ((out["color"] - target.to(dev)) ** 2).mean() + out["depth"].mean()
+        loss.backward()
+        launched = {k: v - before[k] for k, v in diffint.KERNEL_LAUNCHES.items()}
+        assert launched == ({"integrate_fwd": 1, "integrate_bwd": 1}
+                            if dev == cuda else
+                            {"integrate_fwd": 0, "integrate_bwd": 0})
+        grads.append((out["color"].detach().cpu(), s.grad.cpu(), a.grad.cpu()))
+    (ck, sk, ak), (cp, sp, ap) = grads
+    assert float((ck - cp).abs().max()) <= 1e-5
+    for x, y in ((sk, sp), (ak, ap)):
+        assert float((x - y).abs().max()) <= 1e-4 * float(y.abs().max())

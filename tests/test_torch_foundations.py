@@ -58,7 +58,7 @@ def test_camera_and_rays(pos, target, aspect):
     for jit in (None, jitter):
         jo, jd = jcamera.rays_for_image(
             jc, w, h, None if jit is None else jnp.asarray(jit))
-        to, td = tcamera.rays_for_image(tc, w, h, jit)
+        to, td = tcamera.rays_for_image(tc, w, h, jit, device="cpu")
         np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=ATOL)
         np.testing.assert_allclose(td.numpy(), np.asarray(jd), atol=ATOL)
     xs = np.random.RandomState(6).rand(50).astype(np.float32) * w
@@ -181,7 +181,7 @@ def test_camera_params_and_mega_camera():
     jc = jcamera.Camera.create((1.2, 0.9, -1.4), (0.1, -0.05, 0.2), 2.0)
     ref = np.asarray(jmega.mega_camera(jmega.MegaVolume(jv), jc, jnp.asarray(SUN),
                                        64, 32, 0.7, (0.1, 0.2, 0.3)))
-    out = tmega.mega_camera(tmega.MegaVolume(volume_from_jax(jv)),
+    out = tmega.mega_camera(tmega.MegaVolume(volume_from_jax(jv), device="cpu"),
                             camera_from_jax(jc), SUN, 64, 32, 0.7,
                             (0.1, 0.2, 0.3))
     assert out.shape == (29,) and out.dtype == torch.float32
@@ -215,7 +215,7 @@ def test_packed_tables_decode_to_grid():
     """The kernel's tables hold exactly the grid (layout of pack_mega)."""
     g = np.random.RandomState(13).randint(0, 4, (21, 13, 17)).astype(np.uint8)
     g[g == 1] = 200
-    tb = tmega.pack_tables(g, np.ones((256, 3), np.float32), 20.0)
+    tb = tmega.pack_tables(g, np.ones((256, 3), np.float32), 20.0, device="cpu")
     bx, by, bz = tb.bsize
     assert (bx, by, bz) == (3, 2, 3) and tb.gsize == (17, 13, 21)
     pad = np.zeros((bz * 8, by * 8, bx * 8), np.uint8)

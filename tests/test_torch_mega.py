@@ -96,7 +96,7 @@ def _compare_frames(ref, out, resolved, budget):
 def test_render_mega_matches_pallas(jscene, jcam, shading):
     ref = _np(jmega.render_mega(jmega.MegaVolume(jscene), jcam, W, H,
                                 shading=shading, interpret=True))
-    mv = mega.MegaVolume(volume_from_jax(jscene))
+    mv = mega.MegaVolume(volume_from_jax(jscene), device="cpu")
     out = _np(mega.render_mega(mv, camera_from_jax(jcam), W, H,
                                shading=shading))
     assert out["image"].shape == (H, W, 3) and out["image"].dtype == np.uint8
@@ -113,7 +113,7 @@ def test_trace_rays_matches_pallas_and_oracle(jscene):
     ref = _np(jmega.trace_rays(jnp.asarray(o), jnp.asarray(d), tb.occ,
                                tb.occw, tb.wsm, tb.matw, bsize=tb.bsize,
                                vpu=tb.vpu, fetch_mat=True, interpret=True))
-    mv = mega.MegaVolume(volume_from_jax(jscene))
+    mv = mega.MegaVolume(volume_from_jax(jscene), device="cpu")
     out = {k: v.numpy() for k, v in mega.trace_rays(
         torch.from_numpy(o), torch.from_numpy(d), mv.tables,
         fetch_mat=True).items()}
@@ -153,7 +153,7 @@ def test_lambert_mega_matches_wavefront(jscene, jcam):
     sc = Scene(volumes=[jscene], skydome=SkyDome.black())
     r = Renderer(RenderConfig(width=W, height=H, shading="lambert"))
     ref = _np(r.render(sc.data(), jcam))
-    mv = mega.MegaVolume(volume_from_jax(jscene))
+    mv = mega.MegaVolume(volume_from_jax(jscene), device="cpu")
     out = {k: v.numpy() for k, v in mega.render_lambert_mega(
         mv, camera_from_jax(jcam), W, H).items()}
 
@@ -195,7 +195,7 @@ def test_bench_shaped_hier3_frame():
                depth=t, mat=aux & 255)
     resolved = ((aux >> jmega.AUX_RESOLVED_SHIFT) & 1) == 1
 
-    mv = mega.MegaVolume(volume_from_jax(jvol))
+    mv = mega.MegaVolume(volume_from_jax(jvol), device="cpu")
     out = _np(mega.render_mega(mv, camera_from_jax(jcam), W, H,
                                sun_dir=np.asarray(sun)))
     _compare_frames(ref, out, resolved, HIT_MISMATCH_BENCH)
@@ -206,6 +206,12 @@ def test_port_imports_no_jax():
             "import voxel_tracer_tpu_torch\n"
             "import voxel_tracer_tpu_torch.convert\n"
             "import voxel_tracer_tpu_torch.ops.cuda.mega\n"
+            "import voxel_tracer_tpu_torch.ops.cuda.diffint\n"
+            "import voxel_tracer_tpu_torch.ops.diff\n"
+            "import voxel_tracer_tpu_torch.trainer\n"
+            "import voxel_tracer_tpu_torch.utils.checkpoint\n"
+            "import voxel_tracer_tpu_torch.utils.logging\n"
+            "import voxel_tracer_tpu_torch.examples.inverse_render\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'voxel_tracer_tpu')]\n"
             "assert not bad, bad\n")

@@ -4,7 +4,7 @@ Counterpart of `voxel_tracer_tpu/models/camera.py` (the reference camera,
 src/graphics/camera.{h,cpp}, and Pyramid, src/graphics/rays/pyramid.cpp).
 The basis (tl/tr/bl) is derived from pos/target like Camera::tick
 (camera.cpp:3-16).  Camera fields are float32 CPU tensors; ray generation
-takes an explicit `device`.
+runs on the card unless the caller asks for another `device`.
 """
 
 from __future__ import annotations
@@ -81,7 +81,7 @@ def primary_rays(cam: Camera, xs, ys, width, height):
 
 
 def rays_for_image(cam: Camera, width: int, height: int, jitter=None,
-                   device="cpu"):
+                   device="cuda"):
     """All primary rays for a width x height image, flattened row-major.
 
     jitter: optional (H, W, 2) sub-pixel offsets in [0, 1).

@@ -8,6 +8,9 @@ library and an edited source rebuilds it.  Nothing here runs at import
 time: a machine without `nvcc` can import the package and use the plain
 PyTorch versions on CPU tensors.
 
+The argument checks the kernel wrappers share (`check`, `device_of`,
+`raise_on`) live here too.
+
 Flags: `sm_90a` (Hopper), `-O3`, and `--fmad=false` so the compiler
 contracts no multiply-add on its own; the kernels call `fmaf` where the
 plain versions fuse one.  No `--use_fast_math`: it would flush denormals
@@ -91,3 +94,34 @@ def load(name: str) -> ctypes.CDLL:
                 build([name])
             _LIBS[name] = ctypes.CDLL(str(path))
         return _LIBS[name]
+
+
+# ---------------------------------------------------------------------------
+# Checks shared by the kernel wrappers
+# ---------------------------------------------------------------------------
+
+def check(name, t, dtype, shape, device):
+    """Raise unless tensor ``t`` has this dtype, shape and device and is
+    contiguous: what a kernel reads through a bare pointer."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
+
+
+def device_of(t):
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {t.device}")
+    return t.device
+
+
+def raise_on(lib, err, what):
+    """Raise if a launcher returned a CUDA error code (`vt_error_string`
+    of each library names it)."""
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           f"{lib.vt_error_string(err).decode()}")

@@ -100,7 +100,7 @@ class MegaTables(NamedTuple):
 
 
 def pack_tables(grid: np.ndarray, palette: np.ndarray, vpu: float,
-                device="cpu") -> MegaTables:
+                device="cuda") -> MegaTables:
     """Pack a (Z, Y, X) uint8 grid and its palette for the kernel and the
     plain version (the layout spec is `pack_mega` of the JAX package)."""
     grid = np.ascontiguousarray(grid, np.uint8)
@@ -136,7 +136,7 @@ class MegaVolume:
     tensors: camera parameters are computed on the host.
     """
 
-    def __init__(self, volume, device="cpu"):
+    def __init__(self, volume, device="cuda"):
         self.volume = volume
         self.device = torch.device(device)
         self.refresh()
@@ -340,40 +340,17 @@ def _lib():
     return lib
 
 
-def _check(name, t, dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} is not contiguous")
-
-
 def _volume_args(tables: MegaTables, device):
     bx, by, bz = tables.bsize
     gx, gy, gz = tables.gsize
     nb = bx * by * bz
-    _check("bocc", tables.bocc, torch.int32, (nb,), device)
-    _check("occw", tables.occw, torch.int32, (nb, 16), device)
-    _check("matb", tables.matb, torch.uint8, (nb, 512), device)
-    _check("pal", tables.pal, torch.float32, (256, 3), device)
+    _build.check("bocc", tables.bocc, torch.int32, (nb,), device)
+    _build.check("occw", tables.occw, torch.int32, (nb, 16), device)
+    _build.check("matb", tables.matb, torch.uint8, (nb, 512), device)
+    _build.check("pal", tables.pal, torch.float32, (256, 3), device)
     return [tables.bocc.data_ptr(), tables.occw.data_ptr(),
             tables.matb.data_ptr(), bx, by, bz, gx, gy, gz, tables.vpu,
             dda.MAX_STEPS]
-
-
-def _raise_on(lib, err, what):
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed: "
-                           f"{lib.vt_error_string(err).decode()}")
-
-
-def _device_of(t):
-    if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {t.device}")
-    return t.device
 
 
 # ---------------------------------------------------------------------------
@@ -391,12 +368,12 @@ def render_mega_tiles(cam, tables: MegaTables, *, width, height,
     'analytic', 'constant' (cam[26:29]) or 'none' (black).
     """
     shade_code, sky_code = _SHADING[shading], _SKY[sky_mode]
-    dev = _device_of(cam)
+    dev = _build.device_of(cam)
     if dev.type == "cpu":
         return render_mega_tiles_plain(cam, tables, width=width,
                                        height=height, sky_mode=sky_mode,
                                        shading=shading, ambient=ambient)
-    _check("cam", cam, torch.float32, (29,), dev)
+    _build.check("cam", cam, torch.float32, (29,), dev)
     vol = _volume_args(tables, dev)
     rgba = torch.empty((height, width), dtype=torch.int32, device=dev)
     t = torch.empty((height, width), dtype=torch.float32, device=dev)
@@ -407,7 +384,7 @@ def render_mega_tiles(cam, tables: MegaTables, *, width, height,
             cam.data_ptr(), tables.pal.data_ptr(), *vol, width, height,
             shade_code, sky_code, float(ambient), rgba.data_ptr(),
             t.data_ptr(), aux.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(lib, err, "mega_camera")
+    _build.raise_on(lib, err, "mega_camera")
     KERNEL_LAUNCHES["mega_camera"] += 1
     return rgba, t, aux
 
@@ -419,12 +396,12 @@ def trace_rays(o_l, d_l, tables: MegaTables, *, fetch_mat=False):
     wavefronts.  Returns a dict of (N,) tensors: t (BIG = miss), mat (0
     unless fetch_mat), ax (axis*2 + step-sign>0), steps, resolved.
     """
-    dev = _device_of(o_l)
+    dev = _build.device_of(o_l)
     if dev.type == "cpu":
         return trace_rays_plain(o_l, d_l, tables, fetch_mat=fetch_mat)
     n = o_l.shape[0]
-    _check("o_l", o_l, torch.float32, (n, 3), dev)
-    _check("d_l", d_l, torch.float32, (n, 3), dev)
+    _build.check("o_l", o_l, torch.float32, (n, 3), dev)
+    _build.check("d_l", d_l, torch.float32, (n, 3), dev)
     if n >= 2 ** 31:
         raise ValueError(f"{n} rays: the kernel takes fewer than 2**31")
     vol = _volume_args(tables, dev)
@@ -438,7 +415,7 @@ def trace_rays(o_l, d_l, tables: MegaTables, *, fetch_mat=False):
             o_l.data_ptr(), d_l.data_ptr(), n, *vol, int(bool(fetch_mat)),
             t.data_ptr(), aux.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(lib, err, "mega_rays")
+    _build.raise_on(lib, err, "mega_rays")
     KERNEL_LAUNCHES["mega_rays"] += 1
     return _trace_dict(t, aux)
 
