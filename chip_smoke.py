@@ -2,9 +2,9 @@
 """Smoke test of the PyTorch / CUDA port on one NVIDIA GPU.
 
 Builds the port's CUDA kernels from the sources in this checkout, drives
-the port's two main paths through their public entry points, holds every
+the port's main paths through their public entry points, holds every
 kernel against its plain PyTorch version on the same inputs, and times
-both:
+them:
 
 - serving: the bench.py frame -- dense 64^3 noise volume, orbit camera,
   1920x1088, flat (`render_mega`) and lit (`render_lambert_mega`);
@@ -12,17 +12,26 @@ both:
   bench_suite.py's inverse_128_32views -- a 128^3 sigma + albedo grid, 32
   ring views of 64x64 (131,072 rays a step), Adam lr 1e-2 -- after the
   integrate kernels are checked on bench_suite.py's diff_lambert_512 scene
-  (sparse 64^3 blob, 512x512 camera rays) and the z-slab sequencer.
+  (sparse 64^3 blob, 512x512 camera rays) and the z-slab sequencer;
+- the kernel renderer: the 512-crate profiling scene baked into one 256^3
+  grid, `render_lambert_fast` and `render_flat_fast` at 1920x1088 on the
+  coherent kernel (B5), then B5 against its plain version on the frame's
+  own primary and shadow ray lists, and an unbaked two-volume scene;
+- the independent DDA: `render_indep` flat and lambert at 1920x1088 on the
+  bench scene (B3) and `trace_rays_indep` on 1 M random rays (B4).
 
 Each main path runs with the launch counts set to 0 just before it and
 read just after.  It prints one line per phase, then the card's name and
 power limit as nvidia-smi reports them, then
 
     {"kernels": [{"name", "route", "source", "replaces", "launches",
-                  "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                  "library_ms"}, ...]}
+                  "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                  "bound_by", "library_ms"}, ...]}
 
-and, as the last line, {"ok": true, "device": {...}}.  `bound_ms` is the
+and, as the last line, {"ok": true, "device": {...}}.  `ms` is CUDA-event
+time per call over serialized calls, host work of the wrapper included;
+`device_ms` the kernel's own span per launch in a `torch.profiler` window
+(null where the profiler shows no device events).  `bound_ms` is the
 larger of the bytes the call must move over 3.35 TB/s and its FP32
 operations (counted from this run's data, per-unit counts read off the
 kernel sources) over 67 TFLOP/s, the H100 SXM's published peaks.
@@ -74,6 +83,14 @@ INT_OPS_PER_RAY = 65            # slab test, signs, first brick (diffint.cu)
 INT_OPS_PER_BRICK_STEP = 38     # brick planes, [tn, tf], exit axis
 INT_OPS_PER_VISIT = 43          # fine entry of an occupied brick
 INT_OPS_PER_FINE_STEP = {"fwd": 29, "bwd": 60}
+COH_OPS_PER_RAY = 70            # slab test, signs, first brick (coherent.cu)
+COH_OPS_PER_BRICK_STEP = 50     # brick-AABB slab test, crossing rule, exit step
+COH_OPS_PER_VISIT = 35          # fine entry of an occupied brick (brick_walk.cuh)
+FINE_OPS_PER_STEP = 16          # one fine DDA step (brick_walk.cuh)
+IND_OPS_PER_RAY = 80            # slab test, signs, brick DDA set-up (indep.cu)
+IND_OPS_PER_BRICK_STEP = 14     # bitmap test, one brick A&W step
+IND_OPS_PER_VISIT = 40          # enter, brick corner, fine entry
+CAM_OPS_PER_PIXEL = 60          # raygen and shading tail (frame.cuh)
 
 
 def log(msg):
@@ -225,8 +242,9 @@ def phase_small_reference():
     return worst
 
 
-def phase_trace_rays(mv):
-    from voxel_tracer_tpu_torch.ops.cuda import mega
+def random_rays():
+    """N_RAYS random local rays around the bench volume, 1/64 of them
+    axis-parallel (on the card)."""
     rng = np.random.RandomState(0)
     o = rng.uniform(-1.0, 4.2, (N_RAYS, 3)).astype(np.float32)  # volume: [0, 3.2]^3
     d = rng.randn(N_RAYS, 3).astype(np.float32)
@@ -237,8 +255,11 @@ def phase_trace_rays(mv):
     zeros = np.where(rng.rand(k, 3) < 0.5, -0.0, 0.0).astype(np.float32)
     zeros[np.arange(k), axis] = np.where(rng.rand(k) < 0.5, -1.0, 1.0)
     d[:k] = zeros
-    o_t = torch.from_numpy(o).cuda()
-    d_t = torch.from_numpy(d).cuda()
+    return torch.from_numpy(o).cuda(), torch.from_numpy(d).cuda()
+
+
+def phase_trace_rays(mv, o_t, d_t):
+    from voxel_tracer_tpu_torch.ops.cuda import mega
     kr = mega.trace_rays(o_t, d_t, mv.tables, fetch_mat=True)
     pr = mega.trace_rays_plain(o_t, d_t, mv.tables, fetch_mat=True)
     torch.cuda.synchronize()
@@ -254,17 +275,21 @@ def phase_trace_rays(mv):
     require(all(eq.values()), f"trace_rays fields differ: {eq}")
     require(dt <= T_ATOL, f"trace_rays t differs by {dt}")
     ms = cuda_ms(lambda i: mega.trace_rays(o_t, d_t, mv.tables, fetch_mat=True), 20)
+    dev_ms = kernel_device_ms(lambda: mega.trace_rays(o_t, d_t, mv.tables, fetch_mat=True),
+                              20, "mega_rays_kernel")
     plain_ms = cuda_ms(lambda i: mega.trace_rays_plain(o_t, d_t, mv.tables,
                                                        fetch_mat=True), 2)
-    log(f"[trace_rays] kernel {ms:.4f} ms, plain {plain_ms:.2f} ms per "
-        f"{N_RAYS} rays ({N_RAYS / ms * 1e3:.4g} vs {N_RAYS / plain_ms * 1e3:.4g} rays/s)")
+    dev = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+    log(f"[trace_rays] kernel {ms:.4f} ms (device time per launch {dev}), plain "
+        f"{plain_ms:.2f} ms per {N_RAYS} rays ({N_RAYS / ms * 1e3:.4g} vs "
+        f"{N_RAYS / plain_ms * 1e3:.4g} rays/s)")
     tb = mv.tables
     nbytes = N_RAYS * (24 + 8) + tb.bocc.numel() * 4 + tb.occw.numel() * 4 + tb.matb.numel()
     b = bound(nbytes, N_RAYS * MEGA_OPS_PER_RAY
               + int(kr["steps"].sum()) * MEGA_OPS_PER_STEP)
     log(f"[trace_rays] bound {b[0]:.4f} ms ({b[1]}): {nbytes} bytes, "
         f"{int(kr['steps'].sum())} DDA steps")
-    return dict(err=dt, ms=ms, plain_ms=plain_ms, bound=b)
+    return dict(err=dt, ms=ms, dev_ms=dev_ms, plain_ms=plain_ms, bound=b)
 
 
 def phase_flat(tag, mv, cam):
@@ -334,6 +359,11 @@ def phase_timing(mv):
         require((launched["mega_camera"] > 0) == kernel,
                 f"{name} timing launched the kernel {launched} times")
         out[name] = ms[1]
+    dev_ms = kernel_device_ms(lambda: flat(mega.render_mega_tiles)(0), 16,
+                              "mega_camera_kernel")
+    log(f"[timing] flat kernel device time per launch "
+        f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}")
+    out["flat kernel device"] = dev_ms
     return out
 
 
@@ -457,7 +487,7 @@ def integrate_pair(tag, sigma, albedo, o, d, vpu, target, reps):
         log(f"[{tag} {mode}] kernel {ms:.4f} ms per call (CUDA events over {reps} "
             f"calls; device time per launch {dev}), plain {plain_ms:.2f} ms; "
             f"bound {b[0]:.4f} ms ({b[1]}); {n / ms * 1e3:.4g} rays/s")
-        out[mode] = dict(ms=ms, plain_ms=plain_ms, bound=b)
+        out[mode] = dict(ms=ms, dev_ms=dev_ms, plain_ms=plain_ms, bound=b)
     return out
 
 
@@ -627,6 +657,302 @@ def phase_train():
     return res
 
 
+# ---------------------------------------------------------------------------
+# Third slice: the coherent kernel B5 (kernel renderer) and the indep
+# kernels B3 / B4
+# ---------------------------------------------------------------------------
+
+def compare_traces(tag, k, p):
+    """Ray-list outputs of a kernel and its plain version: hit mask and
+    every integer field equal, t within T_ATOL; returns max |dt|."""
+    hk, hp = k["t"] < 1e30, p["t"] < 1e30
+    both = hk & hp
+    dt = _maxabs(k["t"][both] - p["t"][both])
+    eq = {f: bool(torch.equal(k[f], p[f]))
+          for f in ("vox", "mat", "ax", "steps", "resolved") if f in p}
+    log(f"[{tag}] {k['t'].numel()} rays: hit mismatches {int((hk != hp).sum())}, "
+        f"equal {eq}, t max |d| {dt:.3g}, hit fraction {float(hk.float().mean()):.4f}, "
+        f"unresolved {int((~k['resolved']).sum())}")
+    require(bool(torch.equal(hk, hp)), f"{tag}: hit masks differ")
+    require(all(eq.values()), f"{tag}: fields differ: {eq}")
+    require(dt <= T_ATOL, f"{tag}: t differs by {dt}")
+    return dt
+
+
+def check_lit(tag, lit, all_sun=False):
+    """The lit frame's AOVs: shapes, finite values, unit normals, a hit
+    fraction strictly between 0 and 1, a sunlit share above 0 and below 1
+    (or equal to 1 where ``all_sun``)."""
+    hit = lit["depth"] < 1e30
+    frac = float(hit.float().mean())
+    require(lit["image"].shape == (H, W, 3) and lit["image"].dtype == torch.float32,
+            f"{tag}: image shape/dtype")
+    require(bool(((lit["image"] >= 0) & (lit["image"] <= 1)).all()), f"{tag}: image range")
+    require(0.05 < frac < 0.99, f"{tag}: hit fraction {frac}")
+    require(bool(torch.isfinite(lit["depth"][hit]).all()), f"{tag}: non-finite depth")
+    n = lit["normal"][hit]
+    require(bool(torch.allclose(n.norm(dim=-1), torch.ones_like(n[:, 0]), atol=1e-6)),
+            f"{tag}: normals are not unit length")
+    require(bool(torch.isfinite(lit["irradiance"]).all()), f"{tag}: non-finite irradiance")
+    sun = float((lit["irradiance"][hit][:, 0] > 0.2 + 1e-6).float().mean())
+    require(0.0 < sun and (sun <= 1.0 if all_sun else sun < 1.0),
+            f"{tag}: sunlit share {sun}")
+    return frac, sun
+
+
+def frame_rays(scene, cam, lit):
+    """The primary and shadow ray lists of a one-volume render_lambert_fast
+    frame, volume-local, as the frame builds them (tile order)."""
+    from voxel_tracer_tpu_torch.models.camera import rays_for_image
+    from voxel_tracer_tpu_torch.ops.composite import _to_local
+    from voxel_tracer_tpu_torch.ops.cuda.integrate import tiles_of_image
+    fv = scene.volumes[0]
+    o, d = (tiles_of_image(x, H, W) for x in rays_for_image(cam, W, H))
+    depth = tiles_of_image(lit["depth"].reshape(-1), H, W)
+    normal = tiles_of_image(lit["normal"].reshape(-1, 3), H, W)
+    p = o + d * depth[:, None] + normal * 1e-4
+    lists = {"primary": _to_local(fv.rot, fv.pos, fv.pivot, o, d),
+             "shadow": _to_local(fv.rot, fv.pos, fv.pivot, p,
+                                 torch.broadcast_to(scene.sun_dir, p.shape))}
+    return {k: (a.contiguous(), b.contiguous()) for k, (a, b) in lists.items()}
+
+
+def coherent_bound(n, pk, stats):
+    """Rays read once (24 B), outputs written once (20 B), tables read once;
+    operations counted from the walk's work on these rays."""
+    nbytes = n * 44 + pk.occ.numel() * 4 + pk.words.numel() * 4
+    ops = (n * COH_OPS_PER_RAY + stats.get("brick_steps", 0) * COH_OPS_PER_BRICK_STEP
+           + stats.get("brick_visits", 0) * COH_OPS_PER_VISIT
+           + stats.get("fine_steps", 0) * FINE_OPS_PER_STEP)
+    return bound(nbytes, ops)
+
+
+def indep_bound(n, per_ray_bytes, tb, stats, camera):
+    nbytes = (n * per_ray_bytes + 512 + tb.occw.numel() * 4 + tb.matb.numel()
+              + (tb.pal.numel() * 4 + 29 * 4 if camera else 0))
+    ops = (n * (IND_OPS_PER_RAY + (CAM_OPS_PER_PIXEL if camera else 0))
+           + stats.get("brick_steps", 0) * IND_OPS_PER_BRICK_STEP
+           + stats.get("brick_visits", 0) * IND_OPS_PER_VISIT
+           + stats.get("fine_steps", 0) * FINE_OPS_PER_STEP)
+    return bound(nbytes, ops)
+
+
+def time_kernel(tag, fn, plain_fn, counts, span, n, bnd):
+    """CUDA-event ms per call at two call counts and their differential,
+    profiler device ms per launch, plain ms (one call).  On a call of tens
+    of microseconds the event time is mostly the wrapper's host work: the
+    device time is the kernel's own."""
+    fn()                                            # warm-up
+    ms = [cuda_ms(lambda i: fn(), c) for c in counts]
+    slope = (ms[1] * counts[1] - ms[0] * counts[0]) / (counts[1] - counts[0])
+    agree = abs(slope - ms[1]) <= SLOPE_RTOL * ms[1]
+    dev_ms = kernel_device_ms(fn, counts[0], span)
+    plain_ms = cuda_ms(lambda i: plain_fn(), 1)
+    dev = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+    log(f"[timing] {tag}: kernel {ms[0]:.4f} ms per call over {counts[0]} calls, "
+        f"{ms[1]:.4f} over {counts[1]}; differential {slope:.4f} ms/call, "
+        f"{'agrees' if agree else 'does NOT agree'} within {SLOPE_RTOL:.0%}; "
+        f"device time per launch {dev}; plain {plain_ms:.2f} ms; bound "
+        f"{bnd[0]:.4f} ms ({bnd[1]}); {n / ms[1] * 1e3:.4g} rays/s")
+    return dict(ms=ms[1], dev_ms=dev_ms, plain_ms=plain_ms, bound=bnd)
+
+
+def phase_kernel_renderer():
+    """[kernel renderer] The 512-crate profiling scene baked into one 256^3
+    grid; render_lambert_fast then render_flat_fast at WxH with the launch
+    counts at 0 just before; B5 against its plain version on the frame's
+    own primary and shadow ray lists."""
+    from voxel_tracer_tpu_torch.ops.cuda import coherent, integrate, renderer_fast
+    from voxel_tracer_tpu_torch.utils import profiling
+    t0 = time.perf_counter()
+    vol = profiling.profiling_scene_merged()
+    scene = renderer_fast.FastScene.build([vol], device="cuda")
+    cam = profiling.profiling_camera(W / H)
+    pk = scene.volumes[0].packed
+    torch.cuda.synchronize()
+    log(f"[kernel renderer] 512 crates baked into a {vol.grid.shape[::-1]} grid, "
+        f"{pk.occ.numel()} bricks ({int(pk.occ.sum())} occupied), scene built in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    coherent.reset_launch_counts()
+    lit = renderer_fast.render_lambert_fast(scene, cam, W, H)
+    torch.cuda.synchronize()
+    lit_launches = coherent.KERNEL_LAUNCHES["coherent"]
+    flat = integrate.render_flat_fast(scene.volumes[0], scene.sky, cam, W, H)
+    torch.cuda.synchronize()
+    launches = coherent.KERNEL_LAUNCHES["coherent"]
+    log(f"[kernel renderer] render_lambert_fast + render_flat_fast at {W}x{H}: "
+        f"coherent launches {launches} ({lit_launches} for the lit frame)")
+    require(lit_launches == 2, f"lit frame launched B5 {lit_launches} times, not 2")
+    require(launches > lit_launches, "flat frame did not launch B5")
+    # the baked crates close into one cube whose faces seen from this
+    # camera all face the sun: every hit is sunlit
+    frac, sun = check_lit("kernel renderer", lit, all_sun=True)
+    require(bool(torch.equal(flat["depth"], lit["depth"])), "flat and lit depth differ")
+    log(f"[kernel renderer] hit fraction {frac:.4f}, sunlit share of hits {sun:.4f}, "
+        f"mean steps on hits {float(lit['steps'][lit['depth'] < 1e30].float().mean()):.2f}")
+
+    lists = frame_rays(scene, cam, lit)
+    # the frame's lists barely walk (primary rays stop at the cube's face,
+    # shadow rays leave it): random rays in and around the crate field walk
+    # the hollow crates
+    rng = np.random.RandomState(1)
+    o = rng.uniform(-1.0, 13.8, (N_RAYS, 3)).astype(np.float32)   # grid: [0, 12.8]^3
+    d = rng.randn(N_RAYS, 3).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    lists["random"] = (torch.from_numpy(o).cuda(), torch.from_numpy(d).cuda())
+    out = dict(launches=launches, err=0.0, scene=scene, cam=cam, lists=lists, stats={})
+    unresolved = 0
+    for name, (o, d) in lists.items():
+        k = coherent.trace_coherent(pk.occ, pk.words, o, d, pk.bsize, pk.vpu)
+        stats = {}
+        p = coherent.trace_coherent_plain(pk.occ, pk.words, o, d, pk.bsize, pk.vpu,
+                                          stats=stats)
+        torch.cuda.synchronize()
+        unresolved += int((~k["resolved"]).sum())
+        out["err"] = max(out["err"], compare_traces(f"kernel renderer {name}", k, p))
+        log(f"[kernel renderer {name}] work {stats}")
+        out["stats"][name] = stats
+    log(f"[kernel renderer] unresolved rays: {unresolved}")
+    require(unresolved == 0, f"{unresolved} unresolved rays")
+    return out
+
+
+def phase_two_volumes():
+    """[two volumes] Two unbaked procedural crates through
+    render_lambert_fast (one B5 launch per volume and pass, min-combined)
+    against its plain counterpart."""
+    from voxel_tracer_tpu_torch.models.camera import Camera
+    from voxel_tracer_tpu_torch.models.volume import VoxelVolume
+    from voxel_tracer_tpu_torch.ops.cuda import coherent, renderer_fast
+    from voxel_tracer_tpu_torch.utils import profiling
+    crate = profiling._procedural_crate()
+    # the raised crate shades the top of the other one
+    vols = [VoxelVolume(crate, pos=(0.0, 1.0, 0.0)),
+            VoxelVolume(crate, pos=(1.2, -0.8, 1.2))]
+    scene = renderer_fast.FastScene.build(vols, device="cuda")
+    cam = Camera.create((2.5, 4.0, -2.5), (0.6, 0.0, 0.6), W / H)
+    coherent.reset_launch_counts()
+    k = renderer_fast.render_lambert_fast(scene, cam, W, H)
+    torch.cuda.synchronize()
+    launches = coherent.KERNEL_LAUNCHES["coherent"]
+    p = renderer_fast.render_lambert_fast_plain(scene, cam, W, H)
+    torch.cuda.synchronize()
+    eq = {f: bool(torch.equal(k[f], p[f]))
+          for f in ("depth", "normal", "material", "steps", "irradiance", "albedo")}
+    lsb = float((k["image"] - p["image"]).abs().max()) * 255
+    frac, sun = check_lit("two volumes", k)
+    log(f"[two volumes] 2 crates unbaked, {W}x{H}: coherent launches {launches}, "
+        f"kernel vs plain equal {eq}, image {lsb:.3g} LSB, hit fraction {frac:.4f}, "
+        f"sunlit share {sun:.4f}")
+    require(launches == 4, f"two-volume frame launched B5 {launches} times, not 4")
+    require(all(eq.values()), f"two-volume frame fields differ: {eq}")
+    require(lsb <= LSB, f"two-volume image differs by {lsb} LSB")
+
+
+def phase_indep(mv, o_t, d_t):
+    """[indep] render_indep flat and lambert at WxH on the bench scene and
+    trace_rays_indep on the random rays, launch counts at 0 just before;
+    then B3 and B4 against their plain versions."""
+    from voxel_tracer_tpu_torch.ops.cuda import indep, mega
+    cam = bench_camera(0.0, W / H)
+    occb = indep.occb_of(mv.tables)
+    indep.reset_launch_counts()
+    flat = indep.render_indep(mv, cam, W, H, sun_dir=SUN)
+    lit = indep.render_indep(mv, cam, W, H, sun_dir=SUN, shading="lambert")
+    tr = indep.trace_rays_indep(o_t, d_t, occb, mv.tables)
+    torch.cuda.synchronize()
+    launches = dict(indep.KERNEL_LAUNCHES)
+    log(f"[indep] render_indep flat + lambert at {W}x{H}, trace_rays_indep on "
+        f"{N_RAYS} rays: launches {launches}")
+    for name, n in launches.items():
+        require(n > 0, f"kernel {name} was not launched on the indep path")
+    hit = flat["depth"] < indep.BIG
+    frac = float(hit.float().mean())
+    require(flat["image"].shape == (H, W, 3) and flat["image"].dtype == torch.uint8,
+            "indep image shape/dtype")
+    require(0.05 < frac < 0.99, f"indep hit fraction {frac}")
+    require(bool(torch.equal(lit["depth"] < indep.BIG, hit)), "flat and lit hit masks differ")
+    unresolved = sum(int((x["resolved"] == 0).sum()) for x in (flat, lit)) + \
+        int((~tr["resolved"]).sum())
+    mega_hit = mega.render_mega(mv, cam, W, H, sun_dir=SUN)["depth"] < mega.BIG
+    log(f"[indep] hit fraction {frac:.4f} (B1 on the same frame: "
+        f"{float(mega_hit.float().mean()):.4f}, hit masks differ on "
+        f"{int((mega_hit != hit).sum())} pixels), mean steps on hits "
+        f"{float(flat['steps'][hit].float().mean()):.2f}, unresolved {unresolved}")
+    require(unresolved == 0, f"{unresolved} unresolved indep rays")
+
+    cam_p = mega.mega_camera(mv, cam, SUN, W, H)
+    err = 0.0
+    cam_stats, ray_stats = {}, {}
+    for shading, stats in (("flat", cam_stats), ("lambert", None)):
+        k = indep.render_indep_tiles(cam_p, occb, mv.tables, width=W, height=H,
+                                     shading=shading)
+        p = indep.render_indep_tiles_plain(cam_p, occb, mv.tables, width=W,
+                                           height=H, shading=shading, stats=stats)
+        torch.cuda.synchronize()
+        err = max(err, compare_frames(f"indep {shading} frame", k, p))
+    p = indep.trace_rays_indep_plain(o_t, d_t, occb, mv.tables, stats=ray_stats)
+    torch.cuda.synchronize()
+    ray_err = compare_traces("indep rays", tr, p)
+    log(f"[indep] work: camera frame {cam_stats}, rays {ray_stats}")
+    return dict(launches=launches, err_cam=err, err_rays=ray_err, cam_p=cam_p,
+                occb=occb, cam_stats=cam_stats, ray_stats=ray_stats)
+
+
+def phase_new_timing(kr, ind, mv, o_t, d_t):
+    """[timing] B5 on the kernel renderer's ray lists, B3 on the bench frame,
+    B4 on the random rays; the lit frame of the kernel renderer end to end
+    (wall and device-busy time)."""
+    from voxel_tracer_tpu_torch.ops.cuda import coherent, indep, renderer_fast
+    pk = kr["scene"].volumes[0].packed
+    out = {}
+    for name, (o, d) in kr["lists"].items():
+        def fn(o=o, d=d):
+            return coherent.trace_coherent(pk.occ, pk.words, o, d, pk.bsize, pk.vpu)
+
+        def plain(o=o, d=d):
+            return coherent.trace_coherent_plain(pk.occ, pk.words, o, d, pk.bsize,
+                                                 pk.vpu)
+        n = o.shape[0]
+        out[f"coherent {name}"] = time_kernel(
+            f"coherent {name} rays", fn, plain, (10, 40), "coherent_kernel", n,
+            coherent_bound(n, pk, kr["stats"][name]))
+    tb = mv.tables
+    n_px = W * H
+    out["indep_camera"] = time_kernel(
+        "indep camera frame",
+        lambda: indep.render_indep_tiles(ind["cam_p"], ind["occb"], tb, width=W, height=H),
+        lambda: indep.render_indep_tiles_plain(ind["cam_p"], ind["occb"], tb, width=W,
+                                               height=H),
+        (16, 64), "indep_camera_kernel", n_px,
+        indep_bound(n_px, 12, tb, ind["cam_stats"], True))
+    out["indep_rays"] = time_kernel(
+        "indep rays",
+        lambda: indep.trace_rays_indep(o_t, d_t, ind["occb"], tb),
+        lambda: indep.trace_rays_indep_plain(o_t, d_t, ind["occb"], tb),
+        (10, 40), "indep_rays_kernel", N_RAYS,
+        indep_bound(N_RAYS, 32, tb, ind["ray_stats"], False))
+
+    scene, cam = kr["scene"], kr["cam"]
+
+    def frames(k):
+        for _ in range(k):
+            renderer_fast.render_lambert_fast(scene, cam, W, H)
+
+    frames(1)
+    counts = (4, 16)
+    ms = [cuda_ms(lambda i: frames(1), c) for c in counts]
+    wall, busy, kernels = device_busy(lambda: frames(8))
+    idle = f"{1.0 - busy / wall:.4f}" if busy is not None else "not measured"
+    log(f"[timing] kernel renderer lit frame {W}x{H}: {ms[0]:.4f} ms/frame over "
+        f"{counts[0]} frames, {ms[1]:.4f} over {counts[1]}; profiled 8 frames: wall "
+        f"{wall / 8:.4f} ms/frame, device busy "
+        f"{'not measured' if busy is None else f'{busy / 8:.4f} ms/frame'} in "
+        f"{kernels / 8:.1f} kernels/frame, idle share {idle}")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -645,7 +971,8 @@ def main():
     mv = mega.MegaVolume(vol, device="cuda")
     launches, frame_steps = phase_main_path(mv)
     err_cam = phase_small_reference()
-    rays = phase_trace_rays(mv)
+    o_rand, d_rand = random_rays()
+    rays = phase_trace_rays(mv, o_rand, d_rand)
     err_cam = max(err_cam, phase_flat("flat frame", mv, bench_camera(0.0, W / H)))
     err_cam = max(err_cam, phase_lit(mv))
     t0 = time.perf_counter()
@@ -670,6 +997,11 @@ def main():
     del scene
     train = phase_train()
 
+    kr = phase_kernel_renderer()
+    phase_two_volumes()
+    ind = phase_indep(mv, o_rand, d_rand)
+    new_times = phase_new_timing(kr, ind, mv, o_rand, d_rand)
+
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(smi)
     src = "voxel_tracer_tpu_torch/csrc/mega.cu"
@@ -678,13 +1010,14 @@ def main():
         dict(name="mega_camera", route="cuda", source=src,
              replaces="voxel_tracer_tpu/ops/pallas/mega.py:2536",
              launches=launches["mega_camera"], max_abs_err=err_cam,
-             ms=times["flat kernel"], plain_ms=times["flat plain"],
+             ms=times["flat kernel"], device_ms=times["flat kernel device"],
+             plain_ms=times["flat plain"],
              bound_ms=cam_bound[0], bound_by=cam_bound[1], library_ms=None),
         dict(name="mega_rays", route="cuda", source=src,
              replaces="voxel_tracer_tpu/ops/pallas/mega.py:2810",
              launches=launches["mega_rays"], max_abs_err=rays["err"],
-             ms=rays["ms"], plain_ms=rays["plain_ms"], bound_ms=rays["bound"][0],
-             bound_by=rays["bound"][1], library_ms=None)]
+             ms=rays["ms"], device_ms=rays["dev_ms"], plain_ms=rays["plain_ms"],
+             bound_ms=rays["bound"][0], bound_by=rays["bound"][1], library_ms=None)]
     for name, mode, line, err in (
             ("integrate_fwd", "fwd", 511, max(train["err_fwd"], diffint_res["err_fwd"])),
             ("integrate_bwd", "bwd", 544, max(train["err_bwd"], diffint_res["err_bwd"]))):
@@ -692,9 +1025,22 @@ def main():
             name=name, route="cuda", source=isrc,
             replaces=f"voxel_tracer_tpu/ops/pallas/diffint.py:{line}",
             launches=train["launches"][name], max_abs_err=err,
-            ms=train[mode]["ms"], plain_ms=train[mode]["plain_ms"],
+            ms=train[mode]["ms"], device_ms=train[mode]["dev_ms"],
+            plain_ms=train[mode]["plain_ms"],
             bound_ms=train[mode]["bound"][0], bound_by=train[mode]["bound"][1],
             library_ms=None))
+    for name, src_name, line, launches_n, err, t in (
+            ("coherent", "coherent", "coherent.py:444", kr["launches"], kr["err"],
+             new_times["coherent primary"]),
+            ("indep_camera", "indep", "indep.py:468", ind["launches"]["indep_camera"],
+             ind["err_cam"], new_times["indep_camera"]),
+            ("indep_rays", "indep", "indep.py:523", ind["launches"]["indep_rays"],
+             ind["err_rays"], new_times["indep_rays"])):
+        kernels.append(dict(
+            name=name, route="cuda", source=f"voxel_tracer_tpu_torch/csrc/{src_name}.cu",
+            replaces=f"voxel_tracer_tpu/ops/pallas/{line}", launches=launches_n,
+            max_abs_err=err, ms=t["ms"], device_ms=t["dev_ms"], plain_ms=t["plain_ms"],
+            bound_ms=t["bound"][0], bound_by=t["bound"][1], library_ms=None))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

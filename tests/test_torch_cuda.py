@@ -11,6 +11,9 @@ Integrate kernels: flags equal; color, trans and depth within 1e-5 (expf
 may differ by an ulp); gradients within 1e-4 x max|g| (the kernel's
 atomics and `index_add_` sum in orders that change from run to run), and
 exactly 0 in empty bricks.
+Coherent (B5) and indep (B3, B4) kernels: the same float32 program as the
+plain versions, so hits, voxel/material, axes, steps and resolved flags
+equal; t within 1e-5; image within 1 LSB (expf in the sky).
 """
 
 import numpy as np
@@ -19,7 +22,8 @@ import torch
 
 from voxel_tracer_tpu_torch.models.camera import Camera
 from voxel_tracer_tpu_torch.models.volume import VoxelVolume
-from voxel_tracer_tpu_torch.ops.cuda import diffint, mega
+from voxel_tracer_tpu_torch.ops.cuda import (coherent, diffint, indep,
+                                             integrate, mega, renderer_fast)
 
 pytestmark = pytest.mark.cuda
 
@@ -260,3 +264,119 @@ def test_render_density_mega_on_the_card(cuda):
     assert float((ck - cp).abs().max()) <= 1e-5
     for x, y in ((sk, sp), (ak, ap)):
         assert float((x - y).abs().max()) <= 1e-4 * float(y.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# B5: the coherent kernel; B3 / B4: the indep kernels
+# ---------------------------------------------------------------------------
+
+def _local_rays(dev, n, lo, hi, seed):
+    """Random local rays; the first 96 are axis-parallel with +-0
+    components, the last 64 start near 1e30 (a missed pixel's shadow
+    ray)."""
+    rng = np.random.RandomState(seed)
+    o = rng.uniform(lo, hi, (n, 3)).astype(np.float32)
+    d = rng.randn(n, 3).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    axes = np.array([[1, 0, 0], [0, 1, 0], [0, 0, 1], [-1, 0, 0], [0, -1, 0],
+                     [0, 0, -1]], np.float32)
+    d[:96] = np.where(axes == 0, np.where(rng.rand(6, 3) < 0.5, -0.0, 0.0),
+                      axes)[np.arange(96) % 6]
+    o[-64:] = d[-64:] * 1e30
+    return torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+
+
+def _assert_trace_equal(k, p):
+    for f in ("vox", "mat", "ax", "steps", "resolved"):
+        if f in p:
+            assert torch.equal(k[f], p[f]), f
+    big = coherent.BIG
+    assert torch.equal(k["t"] < big, p["t"] < big)
+    assert float((k["t"] - p["t"]).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("grid", ["noise", "sphere"])
+def test_coherent_kernel_matches_plain(cuda, grid):
+    vol = (VoxelVolume.noise_filled((40, 48, 56)) if grid == "noise"
+           else _sphere_volume())
+    pv = coherent.pack_volume(vol.grid, vol.vpu, cuda)
+    o, d = _local_rays(cuda, 8192, -0.5, 3.3, 3)
+    before = coherent.KERNEL_LAUNCHES["coherent"]
+    k = coherent.trace_coherent(pv.occ, pv.words, o, d, pv.bsize, pv.vpu)
+    assert coherent.KERNEL_LAUNCHES["coherent"] == before + 1
+    p = coherent.trace_coherent_plain(pv.occ, pv.words, o, d, pv.bsize, pv.vpu)
+    _assert_trace_equal(k, p)
+    assert bool(k["resolved"].all()) and bool((k["t"] < coherent.BIG).any())
+    far = slice(-64, None)
+    assert bool((k["vox"][far] == -1).all() and (k["steps"][far] == 0).all())
+
+
+def test_coherent_kernel_empty_list_and_bad_input(cuda):
+    pv = coherent.pack_volume(_sphere_volume().grid, 20.0, cuda)
+    empty = torch.zeros((0, 3), device=cuda)
+    before = coherent.KERNEL_LAUNCHES["coherent"]
+    k = coherent.trace_coherent(pv.occ, pv.words, empty, empty, pv.bsize, pv.vpu)
+    assert coherent.KERNEL_LAUNCHES["coherent"] == before
+    assert all(v.shape == (0,) for v in k.values())
+    o = torch.zeros((4, 3), device=cuda)
+    with pytest.raises(TypeError):
+        coherent.trace_coherent(pv.occ, pv.words, o.double(), o.double(),
+                                pv.bsize, pv.vpu)
+    with pytest.raises(ValueError):
+        coherent.trace_coherent(pv.occ.cpu(), pv.words, o, o, pv.bsize, pv.vpu)
+
+
+def test_lambert_fast_kernel_matches_plain(cuda):
+    vols = [_sphere_volume(), VoxelVolume(_sphere_volume().grid, pos=(0.9, 0.1, 0.4))]
+    scene = renderer_fast.FastScene.build(vols, device=cuda)
+    cam = Camera.create((1.2, 0.9, -1.4), (0.4, 0.0, 0.3), 2.0)
+    before = coherent.KERNEL_LAUNCHES["coherent"]
+    k = renderer_fast.render_lambert_fast(scene, cam, 64, 32)
+    assert coherent.KERNEL_LAUNCHES["coherent"] == before + 4
+    p = renderer_fast.render_lambert_fast_plain(scene, cam, 64, 32)
+    for f in ("depth", "normal", "material", "steps", "irradiance", "albedo"):
+        assert torch.equal(k[f], p[f]), f
+    assert float((k["image"] - p["image"]).abs().max()) <= 1.0 / 255
+
+
+@pytest.mark.parametrize("shading", ["flat", "lambert", "raw", "trace"])
+@pytest.mark.parametrize("sky_mode", ["analytic", "constant", "none"])
+def test_indep_camera_kernel_matches_plain(cuda, shading, sky_mode):
+    mv = mega.MegaVolume(VoxelVolume.noise_filled((40, 48, 56)), cuda)
+    occb = indep.occb_of(mv.tables)
+    cam = Camera.create((2.0, 1.4, -2.4), (0.0, 0.0, 0.0), 2.0)
+    cam_p = mega.mega_camera(mv, cam, (-0.62, 0.47, -0.63), 96, 48,
+                             sky_const=(0.1, 0.2, 0.3))
+    kw = dict(width=96, height=48, sky_mode=sky_mode, shading=shading)
+    before = indep.KERNEL_LAUNCHES["indep_camera"]
+    rk, tk, ak = indep.render_indep_tiles(cam_p, occb, mv.tables, **kw)
+    assert indep.KERNEL_LAUNCHES["indep_camera"] == before + 1
+    rp, tp, ap = indep.render_indep_tiles_plain(cam_p, occb, mv.tables, **kw)
+    assert torch.equal(ak, ap)
+    assert torch.equal(tk < indep.BIG, tp < indep.BIG)
+    assert float((tk - tp).abs().max()) <= 1e-5
+    diff = (mega._unpack_rgb8(rk) - mega._unpack_rgb8(rp)).abs()
+    assert int(diff.max()) <= 1
+
+
+def test_indep_ray_kernel_matches_plain(cuda):
+    mv = mega.MegaVolume(_sphere_volume(), cuda)
+    occb = indep.occb_of(mv.tables)
+    o, d = _local_rays(cuda, 8192, -0.5, 1.3, 1)
+    before = indep.KERNEL_LAUNCHES["indep_rays"]
+    k = indep.trace_rays_indep(o, d, occb, mv.tables)
+    assert indep.KERNEL_LAUNCHES["indep_rays"] == before + 1
+    p = indep.trace_rays_indep_plain(o, d, occb, mv.tables)
+    _assert_trace_equal(k, p)
+    assert bool(k["resolved"].all()) and bool((k["t"] < indep.BIG).any())
+
+
+def test_indep_kernel_rejects_bad_input(cuda):
+    mv = mega.MegaVolume(VoxelVolume.noise_filled((136, 136, 136)), cuda)
+    occb = torch.zeros(128, dtype=torch.int32, device=cuda)
+    o = torch.zeros((4, 3), device=cuda)
+    with pytest.raises(ValueError):        # 4913 bricks > 4096
+        indep.trace_rays_indep(o, o, occb, mv.tables)
+    mv = mega.MegaVolume(_sphere_volume(), cuda)
+    with pytest.raises(ValueError):
+        indep.trace_rays_indep(o, o, occb.cpu(), mv.tables)

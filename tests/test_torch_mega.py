@@ -207,6 +207,12 @@ def test_port_imports_no_jax():
             "import voxel_tracer_tpu_torch.convert\n"
             "import voxel_tracer_tpu_torch.ops.cuda.mega\n"
             "import voxel_tracer_tpu_torch.ops.cuda.diffint\n"
+            "import voxel_tracer_tpu_torch.ops.cuda.coherent\n"
+            "import voxel_tracer_tpu_torch.ops.cuda.integrate\n"
+            "import voxel_tracer_tpu_torch.ops.cuda.renderer_fast\n"
+            "import voxel_tracer_tpu_torch.ops.cuda.indep\n"
+            "import voxel_tracer_tpu_torch.models.skydome\n"
+            "import voxel_tracer_tpu_torch.utils.profiling\n"
             "import voxel_tracer_tpu_torch.ops.diff\n"
             "import voxel_tracer_tpu_torch.trainer\n"
             "import voxel_tracer_tpu_torch.utils.checkpoint\n"

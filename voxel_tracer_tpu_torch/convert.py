@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from voxel_tracer_tpu_torch.models.camera import Camera
+from voxel_tracer_tpu_torch.models.skydome import SkyDome
 from voxel_tracer_tpu_torch.models.volume import VoxelVolume
 
 
@@ -23,6 +24,12 @@ def volume_from_jax(vol) -> VoxelVolume:
                        pos=np.array(vol.pos, np.float32),
                        rot=np.array(vol.rot, np.float32),
                        vpu=float(vol.vpu))
+
+
+def skydome_from_jax(sky) -> SkyDome:
+    """Port `SkyDome` of a JAX `SkyDome` (its numpy pixels) or of its
+    `SkyDomeData` (device pixels)."""
+    return SkyDome(np.array(sky.pixels, np.float32))
 
 
 def camera_from_jax(cam) -> Camera:

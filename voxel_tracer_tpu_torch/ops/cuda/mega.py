@@ -99,21 +99,34 @@ class MegaTables(NamedTuple):
     vpu: float
 
 
+def brick_bytes(grid: np.ndarray):
+    """(Z, Y, X) uint8 grid -> ((NB, 512) uint8 material bytes, (BX, BY,
+    BZ)), the grid zero-padded to whole 8^3 bricks, brick-major."""
+    grid = np.asarray(grid, np.uint8)
+    gz, gy, gx = grid.shape
+    bx, by, bz = (gx + 7) // 8, (gy + 7) // 8, (gz + 7) // 8
+    pad = np.zeros((bz * 8, by * 8, bx * 8), np.uint8)
+    pad[:gz, :gy, :gx] = grid
+    # (bz, 8, by, 8, bx, 8) -> (brick, z, y, x) -> (NB, 512) bytes
+    matb = pad.reshape(bz, 8, by, 8, bx, 8).transpose(0, 2, 4, 1, 3, 5)
+    return np.ascontiguousarray(matb.reshape(bx * by * bz, 512)), (bx, by, bz)
+
+
+def occupancy_words(matb: np.ndarray) -> np.ndarray:
+    """(NB, 512) material bytes -> (NB, 16) int32 (uint32 bits): bit i % 32
+    of word i // 32 is set iff voxel i is solid."""
+    bits = np.packbits(matb != 0, axis=1, bitorder="little")   # (NB, 64) bytes
+    return bits.view("<u4").astype(np.uint32).view(np.int32)
+
+
 def pack_tables(grid: np.ndarray, palette: np.ndarray, vpu: float,
                 device="cuda") -> MegaTables:
     """Pack a (Z, Y, X) uint8 grid and its palette for the kernel and the
     plain version (the layout spec is `pack_mega` of the JAX package)."""
     grid = np.ascontiguousarray(grid, np.uint8)
     gz, gy, gx = grid.shape
-    bx, by, bz = (gx + 7) // 8, (gy + 7) // 8, (gz + 7) // 8
-    nb = bx * by * bz
-    pad = np.zeros((bz * 8, by * 8, bx * 8), np.uint8)
-    pad[:gz, :gy, :gx] = grid
-    # (bz, 8, by, 8, bx, 8) -> (brick, z, y, x) -> (NB, 512) bytes
-    matb = pad.reshape(bz, 8, by, 8, bx, 8).transpose(0, 2, 4, 1, 3, 5)
-    matb = np.ascontiguousarray(matb.reshape(nb, 512))
-    bits = np.packbits(matb != 0, axis=1, bitorder="little")   # (NB, 64) bytes
-    occw = bits.view("<u4").astype(np.uint32).view(np.int32)     # (NB, 16)
+    matb, (bx, by, bz) = brick_bytes(grid)
+    occw = occupancy_words(matb)                                  # (NB, 16)
     bocc = (occw != 0).any(axis=1).astype(np.int32)
     brick_occ = matb.astype(bool).sum(axis=1, dtype=np.int32).reshape(bz, by, bx)
     return MegaTables(
@@ -290,13 +303,22 @@ def render_mega_tiles_plain(cam, tables: MegaTables, *, width, height,
     """Plain PyTorch version of `render_mega_tiles`, on any device."""
     o, d = _camera_rays(cam, width, height)
     t, aux = _trace_aux(tables, o, d, fetch_mat=shading != "trace")
+    return shade_frame(cam, tables.pal, d, t, aux, width=width, height=height,
+                       sky_mode=sky_mode, shading=shading, ambient=ambient)
+
+
+def shade_frame(cam, pal, d, t, aux, *, width, height, sky_mode, shading,
+                ambient):
+    """The camera kernels' shading tail on traced camera rays (d: local
+    directions, t with BIG on a miss, aux): (rgba, t, aux), each
+    (height, width)."""
     shp = (height, width)
     if shading == "trace":
         return torch.zeros_like(aux).reshape(shp), t.reshape(shp), aux.reshape(shp)
     hit = t < BIG
     mat = (aux & 255).long()
     ax = (aux >> AUX_AX_SHIFT) & 7
-    alb = tables.pal[mat]
+    alb = pal[mat]
     if shading == "lambert":
         # N = -step sign on the hit axis, rotated to world (mega.py:2408-2419)
         k = (ax >> 1).long()

@@ -253,3 +253,18 @@ def intersect_volume_local(grid, brick_occ, origin_l, dir_l, vpu: float,
         slab_tmax=tmax,
         resolved=~(exhausted_any | active(mode)),
     )
+
+
+def normal_from_axis(axis, step_sign, rot3):
+    """World-space hit normal from the last DDA step axis (vv.cpp:161-163).
+
+    axis: (N,) int in [0, 3); step_sign: (N, 3) float +-1; rot3: (3, 3)
+    local -> world.  The local normal is -sign * e_axis, so the world
+    normal is the negated, sign-flipped `axis` column of the rotation,
+    normalised."""
+    axis = axis.long()
+    sign_k = torch.gather(step_sign, -1, axis[..., None])[..., 0]
+    cols = rot3.T[axis]
+    n_w = -sign_k[..., None] * cols
+    n_len = torch.sqrt(torch.sum(n_w * n_w, dim=-1, keepdim=True))
+    return n_w / torch.clamp(n_len, min=1e-20)

@@ -1,8 +1,8 @@
 """Small 3D math on batched tensors with a trailing axis of size 3.
 
 Counterpart of `voxel_tracer_tpu/ops/math3d.py` (the reference template
-math layer, `template/tmpl8math.h`), restricted to what the primary-ray
-frame needs.  `noise3d` is host-side numpy and is copied verbatim so the
+math layer, `template/tmpl8math.h`), restricted to what the ported frames
+need.  `noise3d` is host-side numpy and is copied verbatim so the
 procedural grids match the JAX package bit for bit.
 """
 
@@ -12,6 +12,11 @@ import numpy as np
 import torch
 
 BIG_F32 = 1e30  # reference: template/types.h:19
+
+
+def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched 3D dot product over the trailing axis."""
+    return torch.sum(a * b, dim=-1)
 
 
 def normalize(v: torch.Tensor) -> torch.Tensor:
