@@ -34,7 +34,13 @@ time per call over serialized calls, host work of the wrapper included;
 (null where the profiler shows no device events).  `bound_ms` is the
 larger of the bytes the call must move over 3.35 TB/s and its FP32
 operations (counted from this run's data, per-unit counts read off the
-kernel sources) over 67 TFLOP/s, the H100 SXM's published peaks.
+kernel sources) over 67 TFLOP/s, the H100 SXM's published peaks.  The
+two integrate rows (B6, B7) also carry `differential_ms` (per-call time
+from two call counts), `dup_warp_step_share` (share of warp-steps in which
+two of 32 consecutive rays meet one voxel, counted by the plain march) at
+training shapes, and the same numbers on diff_lambert_512.  Serialized
+calls find their tables warm in L2, as the trainer's backward finds the
+forward's.
 Any failed check raises, and the script exits non-zero without printing a
 result; so does a machine without a CUDA device, or a directory without
 the repository.
@@ -165,7 +171,7 @@ def phase_build():
     dt = time.perf_counter() - t0
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "entry function" in line or "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
     log(f"[build] {len(logs)} of {len(list(_build.CSRC.glob('*.cu')))} "
         f"sources compiled in {dt:.1f} s into {_build.BUILD_DIR}")
@@ -401,19 +407,20 @@ def diff_scene():
 
 def _packed(sigma, albedo):
     from voxel_tracer_tpu_torch.ops.cuda import diffint
-    tables = diffint._pack_tables(sigma.detach(), albedo.detach())
-    return tables, diffint.occ_words(tables[0]), diffint.brick_dims(sigma.shape)
+    rec = diffint.pack_records(sigma.detach(), albedo.detach())
+    return rec, diffint.occ_words(rec[:, 0]), diffint.brick_dims(sigma.shape)
 
 
 def _maxabs(t):
     return float(t.abs().max()) if t.numel() else 0.0
 
 
-def _int_bytes(n, tables, mode):
+def _int_bytes(n, rec, mode):
     """Bytes each integrate call must move: rays, carry (and cotangents and
-    totals) read once, the four tables read once, the outputs written once."""
+    totals) read once, the record table read once, the outputs (the
+    gradient records) written once."""
     per_ray = 24 + 20 + (24 if mode == "fwd" else 40)
-    table_bytes = sum(t.numel() for t in tables) * 4
+    table_bytes = rec.numel() * 4
     return n * per_ray + table_bytes * (1 if mode == "fwd" else 2)
 
 
@@ -423,25 +430,32 @@ def _int_ops(n, stats, mode):
             + stats["fine_steps"] * INT_OPS_PER_FINE_STEP[mode])
 
 
-def integrate_pair(tag, sigma, albedo, o, d, vpu, target, reps):
+def integrate_pair(tag, sigma, albedo, o, d, vpu, target, counts):
     """B6 and B7 against their plain versions on the same inputs (the
     cotangents of mean((color - target)^2)), timed both; returns errors,
-    times, bounds and the march's work."""
+    times, bounds and the march's work, with the share of warp-steps in
+    which two lanes of a warp (32 consecutive rays) meet one voxel."""
     from voxel_tracer_tpu_torch.ops.cuda import diffint
-    tables, occ, bsize = _packed(sigma, albedo)
+    rec, occ, bsize = _packed(sigma, albedo)
     n = o.shape[0]
     carry = diffint._init_carry(n, o.device)
     kw = dict(bsize=bsize, vpu=vpu, t_eps=T_EPS)
-    k = diffint.integrate_fwd_tiles(0, occ, o, d, carry, *tables, **kw)
+    k = diffint.integrate_fwd_records(0, occ, o, d, carry, rec, **kw)
     stats = {}
-    p = diffint.integrate_fwd_plain(0, occ, o, d, carry, *tables, stats=stats, **kw)
+    p = diffint.integrate_fwd_plain(0, occ, o, d, carry, rec, stats=stats, **kw)
     torch.cuda.synchronize()
     require(bool(torch.equal(k[5], p[5])), f"{tag}: flags differ")
     err_f = max(float((a - b).abs().max()) for a, b in zip(k[:5], p[:5]))
     marched = float((k[5] == 2).float().mean())
+    dup = stats["dup_warp_steps"] / stats["warp_steps"]
     log(f"[{tag} fwd] {n} rays, {bsize} bricks: kernel vs plain max |d| "
-        f"{err_f:.3g} (limit {INT_ATOL}), flags equal, marched {marched:.4f}; "
-        f"work {stats}")
+        f"{err_f:.3g} (limit {INT_ATOL}), flags equal, marched {marched:.4f}")
+    log(f"[{tag} work] {n} rays, {stats['brick_steps']} brick steps, "
+        f"{stats['brick_visits']} brick visits, {stats['fine_steps']} fine steps "
+        f"({stats['fine_steps'] / n:.1f} a ray); {stats['warp_steps']} warp-steps, "
+        f"{stats['dup_warp_steps']} with two lanes on one voxel (share {dup:.4f}), "
+        f"{stats['dup_lanes']} lane updates a warp aggregation would merge "
+        f"(share of fine steps {stats['dup_lanes'] / stats['fine_steps']:.4f})")
     require(err_f <= INT_ATOL, f"{tag}: forward differs by {err_f}")
     require(bool(torch.isfinite(k[0]).all() and torch.isfinite(k[4]).all()),
             f"{tag}: non-finite forward")
@@ -450,51 +464,50 @@ def integrate_pair(tag, sigma, albedo, o, d, vpu, target, reps):
     g_color = 2.0 * (color - target) / color.numel()
     zero = torch.zeros(n, device=o.device)
     cts = tuple(g_color[:, i].contiguous() for i in range(3)) + (zero, zero)
-    kb = diffint.integrate_bwd_tiles(0, occ, o, d, carry, *tables, cts, k[:5], **kw)
-    pb = diffint.integrate_bwd_plain(0, occ, o, d, carry, *tables, cts, k[:5], **kw)
+    kb = diffint.integrate_bwd_records(0, occ, o, d, carry, rec, cts, k[:5], **kw)
+    pb = diffint.integrate_bwd_plain(0, occ, o, d, carry, rec, cts, k[:5], **kw)
     torch.cuda.synchronize()
-    empty_brick = torch.repeat_interleave(
-        ((occ[:, None] >> torch.arange(32, device=occ.device)) & 1).reshape(-1)
-        [:tables[0].shape[0] // 4] == 0, 4)
+    nbk = rec.shape[0] // 512
+    empty_brick = ((occ[:, None] >> torch.arange(32, device=occ.device)) & 1
+                   ).reshape(-1)[:nbk] == 0
     err_b, rel_b = 0.0, 0.0
-    for name, a, b in zip(("d_sigma", "d_albedo_r", "d_albedo_g", "d_albedo_b"), kb, pb):
+    for c, name in enumerate(("d_sigma", "d_albedo_r", "d_albedo_g", "d_albedo_b")):
+        a, b = kb[:, c], pb[:, c]
         scale = float(b.abs().max())
         e = float((a - b).abs().max())
         err_b, rel_b = max(err_b, e), max(rel_b, e / max(scale, 1e-30))
         require(scale > 0.0, f"{tag}: {name} is all zero")
         require(e <= GRAD_RTOL * scale, f"{tag}: {name} differs by {e} (max|g| {scale})")
-        require(_maxabs(a[empty_brick]) == 0.0,
+        require(_maxabs(a.reshape(nbk, 512)[empty_brick]) == 0.0,
                 f"{tag}: kernel {name} nonzero in an empty brick")
-        require(_maxabs(b[empty_brick]) == 0.0,
+        require(_maxabs(b.reshape(nbk, 512)[empty_brick]) == 0.0,
                 f"{tag}: plain {name} nonzero in an empty brick")
-    require(_maxabs(kb[0][tables[0] == 0.0]) == 0.0,
+    require(_maxabs(kb[:, 0][rec[:, 0] == 0.0]) == 0.0,
             f"{tag}: d_sigma nonzero where sigma is 0")
     log(f"[{tag} bwd] kernel vs plain max |d| {err_b:.3g}, {rel_b:.3g} x max|g| "
-        f"(limit {GRAD_RTOL}); {int(empty_brick.sum()) // 4} empty bricks exactly 0")
+        f"(limit {GRAD_RTOL}); {int(empty_brick.sum())} empty bricks exactly 0")
 
-    out = dict(err_fwd=err_f, err_bwd=err_b, stats=stats, n=n)
+    out = dict(err_fwd=err_f, err_bwd=err_b, stats=stats, n=n, dup=dup)
     for mode, fn_k, fn_p, args in (
-            ("fwd", diffint.integrate_fwd_tiles, diffint.integrate_fwd_plain,
-             (0, occ, o, d, carry, *tables)),
-            ("bwd", diffint.integrate_bwd_tiles, diffint.integrate_bwd_plain,
-             (0, occ, o, d, carry, *tables, cts, k[:5]))):
-        ms = cuda_ms(lambda i: fn_k(*args, **kw), reps)
-        dev_ms = kernel_device_ms(lambda: fn_k(*args, **kw), reps,
-                                  "integrate_kernel")
-        plain_ms = cuda_ms(lambda i: fn_p(*args, **kw), 1)
-        b = bound(_int_bytes(n, tables, mode), _int_ops(n, stats, mode))
-        dev = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
-        log(f"[{tag} {mode}] kernel {ms:.4f} ms per call (CUDA events over {reps} "
-            f"calls; device time per launch {dev}), plain {plain_ms:.2f} ms; "
-            f"bound {b[0]:.4f} ms ({b[1]}); {n / ms * 1e3:.4g} rays/s")
-        out[mode] = dict(ms=ms, dev_ms=dev_ms, plain_ms=plain_ms, bound=b)
+            ("fwd", diffint.integrate_fwd_records, diffint.integrate_fwd_plain,
+             (0, occ, o, d, carry, rec)),
+            ("bwd", diffint.integrate_bwd_records, diffint.integrate_bwd_plain,
+             (0, occ, o, d, carry, rec, cts, k[:5]))):
+        t = time_kernel(f"{tag} {mode}", lambda: fn_k(*args, **kw),
+                        lambda: fn_p(*args, **kw), counts, "integrate_kernel", n,
+                        bound(_int_bytes(n, rec, mode), _int_ops(n, stats, mode)))
+        per_s = [stats["fine_steps"] / x * 1e3 for x in (t["ms"], t["dev_ms"])
+                 if x is not None]
+        log(f"[{tag} {mode}] {' / '.join(f'{x:.4g}' for x in per_s)} fine steps/s "
+            f"(event / device time)")
+        out[mode] = t
     return out
 
 
 def phase_diffint(scene):
     """[diffint fwd] + [diffint bwd]: the diff_lambert_512 scene."""
     return integrate_pair("diffint", scene["sigma"], scene["albedo"], scene["o"],
-                          scene["d"], scene["vpu"], scene["target"], 20)
+                          scene["d"], scene["vpu"], scene["target"], (20, 80))
 
 
 def phase_finite_difference(scene):
@@ -652,7 +665,7 @@ def phase_train():
     res = integrate_pair("train shapes", tr.params["sigma"].detach(),
                          tr.params["albedo"].detach(), torch.from_numpy(o).cuda(),
                          torch.from_numpy(d).cuda(), TRAIN_VPU,
-                         torch.from_numpy(c).cuda(), 10)
+                         torch.from_numpy(c).cuda(), (10, 40))
     res["launches"] = launches
     return res
 
@@ -754,7 +767,7 @@ def time_kernel(tag, fn, plain_fn, counts, span, n, bnd):
         f"{'agrees' if agree else 'does NOT agree'} within {SLOPE_RTOL:.0%}; "
         f"device time per launch {dev}; plain {plain_ms:.2f} ms; bound "
         f"{bnd[0]:.4f} ms ({bnd[1]}); {n / ms[1] * 1e3:.4g} rays/s")
-    return dict(ms=ms[1], dev_ms=dev_ms, plain_ms=plain_ms, bound=bnd)
+    return dict(ms=ms[1], diff_ms=slope, dev_ms=dev_ms, plain_ms=plain_ms, bound=bnd)
 
 
 def phase_kernel_renderer():
@@ -1021,14 +1034,17 @@ def main():
     for name, mode, line, err in (
             ("integrate_fwd", "fwd", 511, max(train["err_fwd"], diffint_res["err_fwd"])),
             ("integrate_bwd", "bwd", 544, max(train["err_bwd"], diffint_res["err_bwd"]))):
+        t, t_dl = train[mode], diffint_res[mode]
         kernels.append(dict(
             name=name, route="cuda", source=isrc,
             replaces=f"voxel_tracer_tpu/ops/pallas/diffint.py:{line}",
             launches=train["launches"][name], max_abs_err=err,
-            ms=train[mode]["ms"], device_ms=train[mode]["dev_ms"],
-            plain_ms=train[mode]["plain_ms"],
-            bound_ms=train[mode]["bound"][0], bound_by=train[mode]["bound"][1],
-            library_ms=None))
+            ms=t["ms"], differential_ms=t["diff_ms"], device_ms=t["dev_ms"],
+            plain_ms=t["plain_ms"], bound_ms=t["bound"][0], bound_by=t["bound"][1],
+            library_ms=None, dup_warp_step_share=train["dup"],
+            diff_lambert_512=dict(ms=t_dl["ms"], differential_ms=t_dl["diff_ms"],
+                                  device_ms=t_dl["dev_ms"], bound_ms=t_dl["bound"][0],
+                                  dup_warp_step_share=diffint_res["dup"])))
     for name, src_name, line, launches_n, err, t in (
             ("coherent", "coherent", "coherent.py:444", kr["launches"], kr["err"],
              new_times["coherent primary"]),

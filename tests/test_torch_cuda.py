@@ -7,10 +7,11 @@ the test, never at import).  Run on a machine with an NVIDIA GPU:
 
 Tolerances: mega kernels: hits, materials, axes, steps and resolved flags
 equal; depth within 1e-5; image within 1 LSB (expf may differ by an ulp).
-Integrate kernels: flags equal; color, trans and depth within 1e-5 (expf
-may differ by an ulp); gradients within 1e-4 x max|g| (the kernel's
-atomics and `index_add_` sum in orders that change from run to run), and
-exactly 0 in empty bricks.
+Integrate kernels (record layout): flags equal; color, trans and depth
+within 1e-5 (expf may differ by an ulp); each gradient column within
+1e-4 x its max|g| (the kernel's vector reductions and `index_add_` sum in
+orders that change from run to run, most where many rays update one
+voxel), and exactly 0 in empty bricks and, for d sigma, where sigma is 0.
 Coherent (B5) and indep (B3, B4) kernels: the same float32 program as the
 plain versions, so hits, voxel/material, axes, steps and resolved flags
 equal; t within 1e-5; image within 1 LSB (expf in the sky).
@@ -129,10 +130,9 @@ def _blob_scene(dev, empty=False, g=32):
     if empty:
         sigma[:] = 0.0
     albedo = rng.rand(g, g, g, 3)
-    tables = diffint._pack_tables(torch.tensor(sigma, dtype=torch.float32),
-                                  torch.tensor(albedo, dtype=torch.float32))
-    tables = tuple(t.to(dev) for t in tables)
-    return tables, diffint.occ_words(tables[0]), (g // 8,) * 3, float(g)
+    rec = diffint.pack_records(torch.tensor(sigma, dtype=torch.float32),
+                               torch.tensor(albedo, dtype=torch.float32)).to(dev)
+    return rec, diffint.occ_words(rec[:, 0]), (g // 8,) * 3, float(g)
 
 
 def _mixed_rays(dev, n=4096):
@@ -160,18 +160,32 @@ def _carry(n, dev, trivial):
     return tuple(torch.from_numpy(x).to(dev) for x in c)
 
 
+def _assert_grads_match(kb, pb, rec, bsize):
+    """Kernel vs plain gradient records: each column within 1e-4 x its
+    max|g|; exactly 0 in empty bricks and, for d sigma, where sigma is 0."""
+    for k in range(4):
+        scale = float(pb[:, k].abs().max())
+        assert scale > 0.0, k
+        assert float((kb[:, k] - pb[:, k]).abs().max()) <= 1e-4 * scale, k
+    assert float(kb[:, 0][rec[:, 0] == 0.0].abs().max()) == 0.0
+    nb = bsize[0] * bsize[1] * bsize[2]
+    empty = rec[:, 0].reshape(nb, 512).amax(dim=1) <= 0.0
+    assert bool(empty.any())
+    assert float(kb.reshape(nb, 512 * 4)[empty].abs().max()) == 0.0
+
+
 @pytest.mark.parametrize("quad", [0, 1, -1])
 @pytest.mark.parametrize("trivial_carry", [True, False])
 @pytest.mark.parametrize("t_eps", [0.0, 1e-3])
 def test_integrate_kernels_match_plain(cuda, quad, trivial_carry, t_eps):
-    tables, occ, bsize, vpu = _blob_scene(cuda)
+    rec, occ, bsize, vpu = _blob_scene(cuda)
     o, d = _mixed_rays(cuda)
     n = o.shape[0]
     carry = _carry(n, cuda, trivial_carry)
     kw = dict(bsize=bsize, vpu=vpu, t_eps=t_eps)
     before = dict(diffint.KERNEL_LAUNCHES)
-    k = diffint.integrate_fwd_tiles(quad, occ, o, d, carry, *tables, **kw)
-    p = diffint.integrate_fwd_plain(quad, occ, o, d, carry, *tables, **kw)
+    k = diffint.integrate_fwd_records(quad, occ, o, d, carry, rec, **kw)
+    p = diffint.integrate_fwd_plain(quad, occ, o, d, carry, rec, **kw)
     assert torch.equal(k[5], p[5])
     assert int((k[5] & 2).sum()) > n // 4
     for a, b in zip(k[:5], p[:5]):
@@ -179,63 +193,112 @@ def test_integrate_kernels_match_plain(cuda, quad, trivial_carry, t_eps):
     rng = np.random.RandomState(9)
     cts = tuple(torch.from_numpy(x).to(cuda)
                 for x in rng.randn(5, n).astype(np.float32))
-    kb = diffint.integrate_bwd_tiles(quad, occ, o, d, carry, *tables, cts,
-                                     k[:5], **kw)
-    pb = diffint.integrate_bwd_plain(quad, occ, o, d, carry, *tables, cts,
-                                     k[:5], **kw)
+    kb = diffint.integrate_bwd_records(quad, occ, o, d, carry, rec, cts, k[:5], **kw)
+    pb = diffint.integrate_bwd_plain(quad, occ, o, d, carry, rec, cts, k[:5], **kw)
     assert diffint.KERNEL_LAUNCHES["integrate_fwd"] == before["integrate_fwd"] + 1
     assert diffint.KERNEL_LAUNCHES["integrate_bwd"] == before["integrate_bwd"] + 1
-    empty = tables[0] == 0.0
-    for a, b in zip(kb, pb):
-        scale = float(b.abs().max())
-        assert scale > 0.0
-        assert float((a - b).abs().max()) <= 1e-4 * scale
-    assert float(kb[0][empty].abs().max()) == 0.0
+    _assert_grads_match(kb, pb, rec, bsize)
+
+
+@pytest.mark.parametrize("bundle", ["identical", "parallel"])
+def test_integrate_bwd_contention(cuda, bundle):
+    """Many rays through the same voxels: 4096 identical rays, or a 64x64
+    bundle of parallel rays a quarter voxel apart (16 rays a voxel column),
+    so the gradient reductions meet duplicate addresses within a warp and
+    across warps."""
+    rec, occ, bsize, vpu = _blob_scene(cuda)
+    n = 4096
+    k = torch.arange(n, device=cuda)
+    o = torch.empty((n, 3), device=cuda)
+    if bundle == "identical":
+        o[:] = torch.tensor([0.43, 0.51, -0.4], device=cuda)
+    else:
+        o[:, 0] = 0.3 + (k % 64).float() * (0.25 / vpu)
+        o[:, 1] = 0.3 + (k // 64).float() * (0.25 / vpu)
+        o[:, 2] = -0.4
+    d = torch.nn.functional.normalize(
+        torch.tensor([[0.02, 0.01, 1.0]], device=cuda), dim=1).repeat(n, 1)
+    carry = _carry(n, cuda, True)
+    kw = dict(bsize=bsize, vpu=vpu)
+    fwd = diffint.integrate_fwd_records(0, occ, o, d, carry, rec, **kw)
+    rng = np.random.RandomState(8)
+    cts = tuple(torch.from_numpy(x).to(cuda)
+                for x in rng.randn(5, n).astype(np.float32))
+    kb = diffint.integrate_bwd_records(0, occ, o, d, carry, rec, cts, fwd[:5], **kw)
+    pb = diffint.integrate_bwd_plain(0, occ, o, d, carry, rec, cts, fwd[:5], **kw)
+    _assert_grads_match(kb, pb, rec, bsize)
+
+
+def test_integrate_tiles_interface_on_the_card(cuda):
+    """integrate_fwd_tiles / integrate_bwd_tiles (four packed tables)
+    interleave into the record kernels and split their gradients."""
+    rec, occ, bsize, vpu = _blob_scene(cuda)
+    tables = tuple(rec[:, k].reshape(-1, 128).contiguous() for k in range(4))
+    o, d = _mixed_rays(cuda, 1024)
+    carry = _carry(1024, cuda, False)
+    kw = dict(bsize=bsize, vpu=vpu)
+    ft = diffint.integrate_fwd_tiles(0, occ, o, d, carry, *tables, **kw)
+    fr = diffint.integrate_fwd_records(0, occ, o, d, carry, rec, **kw)
+    for a, b in zip(ft, fr):
+        assert torch.equal(a, b)
+    gt = diffint.integrate_bwd_tiles(0, occ, o, d, carry, *tables, carry, ft[:5], **kw)
+    gr = diffint.integrate_bwd_records(0, occ, o, d, carry, rec, carry, ft[:5], **kw)
+    for k, g in enumerate(gt):
+        assert g.shape == tables[k].shape
+        scale = float(gr[:, k].abs().max())
+        assert float((g.reshape(-1) - gr[:, k]).abs().max()) <= 1e-4 * scale
 
 
 def test_integrate_kernels_empty_grid(cuda):
-    tables, occ, bsize, vpu = _blob_scene(cuda, empty=True)
+    rec, occ, bsize, vpu = _blob_scene(cuda, empty=True)
     assert int(occ.abs().sum()) == 0
     o, d = _mixed_rays(cuda, 512)
     carry = _carry(512, cuda, False)
-    cr, cg, cb, tr, dp, fl = diffint.integrate_fwd_tiles(
-        0, occ, o, d, carry, *tables, bsize=bsize, vpu=vpu)
+    cr, cg, cb, tr, dp, fl = diffint.integrate_fwd_records(
+        0, occ, o, d, carry, rec, bsize=bsize, vpu=vpu)
     for a, b in zip((tr, cr, cg, cb, dp), carry):
         assert torch.equal(a, b)
-    grads = diffint.integrate_bwd_tiles(
-        0, occ, o, d, carry, *tables, carry, carry, bsize=bsize, vpu=vpu)
-    assert all(float(g.abs().max()) == 0.0 for g in grads)
+    grad = diffint.integrate_bwd_records(
+        0, occ, o, d, carry, rec, carry, carry, bsize=bsize, vpu=vpu)
+    assert float(grad.abs().max()) == 0.0
 
 
 def test_integrate_kernels_no_rays(cuda):
-    tables, occ, bsize, vpu = _blob_scene(cuda)
+    rec, occ, bsize, vpu = _blob_scene(cuda)
     o = torch.zeros((0, 3), device=cuda)
     carry = _carry(0, cuda, True)
     before = dict(diffint.KERNEL_LAUNCHES)
-    out = diffint.integrate_fwd_tiles(0, occ, o, o, carry, *tables,
-                                      bsize=bsize, vpu=vpu)
-    grads = diffint.integrate_bwd_tiles(0, occ, o, o, carry, *tables, carry,
-                                        carry, bsize=bsize, vpu=vpu)
+    out = diffint.integrate_fwd_records(0, occ, o, o, carry, rec,
+                                        bsize=bsize, vpu=vpu)
+    grad = diffint.integrate_bwd_records(0, occ, o, o, carry, rec, carry,
+                                         carry, bsize=bsize, vpu=vpu)
     assert diffint.KERNEL_LAUNCHES == before
     assert all(x.shape == (0,) for x in out)
-    assert all(float(g.abs().max()) == 0.0 for g in grads)
+    assert grad.shape == rec.shape and float(grad.abs().max()) == 0.0
 
 
 def test_integrate_kernels_reject_bad_input(cuda):
-    tables, occ, bsize, vpu = _blob_scene(cuda)
+    rec, occ, bsize, vpu = _blob_scene(cuda)
     o, d = _mixed_rays(cuda, 128)
     carry = _carry(128, cuda, True)
     kw = dict(bsize=bsize, vpu=vpu)
     with pytest.raises(TypeError):
-        diffint.integrate_fwd_tiles(0, occ, o.double(), d, carry, *tables, **kw)
+        diffint.integrate_fwd_records(0, occ, o.double(), d, carry, rec, **kw)
     with pytest.raises(ValueError):
-        diffint.integrate_fwd_tiles(0, occ, o, d.t().contiguous().t(), carry,
-                                    *tables, **kw)
+        diffint.integrate_fwd_records(0, occ, o, d.t().contiguous().t(), carry,
+                                      rec, **kw)
     with pytest.raises(ValueError):
-        diffint.integrate_fwd_tiles(0, occ.cpu(), o, d, carry, *tables, **kw)
+        diffint.integrate_fwd_records(0, occ.cpu(), o, d, carry, rec, **kw)
     with pytest.raises(ValueError):
-        diffint.integrate_bwd_tiles(0, occ, o, d, carry, *tables,
-                                    tuple(c.cpu() for c in carry), carry, **kw)
+        diffint.integrate_bwd_records(0, occ, o, d, carry, rec,
+                                      tuple(c.cpu() for c in carry), carry, **kw)
+    with pytest.raises(ValueError):        # records 4 bytes off 16-byte alignment
+        flat = torch.zeros(rec.numel() + 1, device=cuda)
+        diffint.integrate_fwd_records(0, occ, o, d, carry, flat[1:].view(-1, 4), **kw)
+    with pytest.raises(ValueError):        # a four-table table of the wrong shape
+        tables = tuple(rec[:, k].reshape(-1, 128).contiguous() for k in range(4))
+        diffint.integrate_fwd_tiles(0, occ, o, d, carry, *tables[:3], tables[3][1:],
+                                    **kw)
 
 
 def test_render_density_mega_on_the_card(cuda):

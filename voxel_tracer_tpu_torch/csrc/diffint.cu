@@ -19,19 +19,38 @@
 // enters the volume is integrated, so there are no k-fighters: flags bit 0
 // is always 0, bit 1 marks a ray marched in this call.
 //
-// Bound: per-step dependent loads (sigma and three albedo values through
-// the read-only path, one brick at a time, L2-resident for 64^3 and 128^3
-// grids), the expf, and the divergence of trip counts inside a warp; in the
-// backward also the atomicAdd traffic into the four gradient tables.  The
-// design keeps neighbouring rays (32x32-pixel tiles, in order) in one warp
-// so their loads and atomics fall in the same bricks.  Per-warp or
-// per-brick aggregation of the atomics in shared memory is later work.
+// Bound: neither bytes nor FP32 rate.  A fine step reads its voxel and
+// runs a dependent chain of ~29 FP32 operations (60 in the backward);
+// at training shapes (131,072 rays on a 128^3 grid, ~27 M fine steps a
+// call) both kernels run far above their byte and operation bounds.  The
+// reads mostly hit L1 (neighbouring rays, 32x32-pixel tiles in order, sit
+// in one warp and cross the same bricks); what remains is the instruction
+// stream of the fine march and the lanes of a warp that wait for the one
+// with the most fine steps in a brick.  The backward's gradient updates go
+// to L2 as reductions: 33.5 MB of records and 33.5 MB of gradients at
+// 128^3, more than the 50 MB L2 holds.  The design cuts the memory work
+// of a fine step to one access each way:
+// - one interleaved record table (sigma, albedo r, g, b) per voxel, read
+//   with one 16-byte load, in place of four tables and four loads;
+// - the next voxel's record requested before the current voxel's
+//   arithmetic, so the load overlaps it;
+// - one vector reduction (red.global.add.v4.f32) of the four gradient
+//   components into one record table of gradients, in place of up to four
+//   scalar atomics into four tables; skipped when all four are 0, so empty
+//   voxels and the d sigma of sigma = 0 voxels stay exactly 0;
+// - the brick occupancy bitmap in shared memory (512 B at 128^3).
+// Warp-level aggregation of the reductions (__match_any_sync, shuffles,
+// one reduction per voxel and warp) made the backward slower on every
+// scene tried, even where most warp-steps share a voxel.  The forward runs
+// faster in blocks of 128 threads, the backward in blocks of 256.
+// tools/torch_diffint_trials.py measures these choices; PERF.md holds the
+// numbers.
 //
 // Rounding: compiled with --fmad=false and no fast math (expf, IEEE
 // division); every float operation is the one the plain PyTorch version
 // (ops/cuda/diffint.py: _march) performs, in the same order, so the forward
-// equals it up to expf's last bit.  The backward's atomics sum in an order
-// that changes from run to run.
+// equals it up to expf's last bit.  The backward's reductions sum in an
+// order that changes from run to run.
 //
 // Launchers are extern "C", run on the caller's stream, allocate nothing,
 // and return cudaGetLastError().
@@ -44,16 +63,20 @@ namespace {
 constexpr float BIG = 3e37f;   // diffint.py:52
 constexpr int BRICK = 8;
 constexpr int BRICK_VOX = 512;
-constexpr int THREADS = 128;
+// threads a block: the faster of 128 and 256 at training shapes, each kernel
+constexpr int FWD_THREADS = 128;
+constexpr int BWD_THREADS = 256;
+constexpr int SMEM_WORDS = 1024;   // bitmaps of up to 32768 bricks in shared memory
 
 struct Params {
   const float* orig;       // (N, 3) local-space origins
   const float* dirs;       // (N, 3) directions
   int n;
   const float* carry[5];   // (N,) T, Cr, Cg, Cb, D entering this (sub)volume
-  const float* tab[4];     // (NB*512,) sigma, albedo r, g, b: brick-major,
+  const float4* rec;       // (NB*512,) (sigma, albedo r, g, b): brick-major,
                            // in-brick index z*64 + y*8 + x
   const uint32_t* occw;    // brick b occupied iff bit b & 31 of word b >> 5
+  int nwords;
   int nb[3];               // bricks (BX, BY, BZ)
   float vpu, rvpu, bpu, rbpu;
   float size[3];           // volume extent (world units)
@@ -66,7 +89,7 @@ struct Params {
   // backward inputs and outputs
   const float* cts[5];     // (N,) cotangents of Cr, Cg, Cb, T, D
   const float* tot[5];     // (N,) full path's Cr, Cg, Cb, T_final, D_total
-  float* grad[4];          // (NB*512,) d sigma, d albedo r, g, b (zeroed)
+  float4* grad;            // (NB*512,) d sigma, d albedo r, g, b (zeroed)
 };
 
 __device__ __forceinline__ float clip_big(float v) {
@@ -74,7 +97,14 @@ __device__ __forceinline__ float clip_big(float v) {
 }
 
 template <bool BWD>
-__global__ void __launch_bounds__(THREADS) integrate_kernel(const Params p) {
+__global__ void __launch_bounds__(BWD ? BWD_THREADS : FWD_THREADS)
+    integrate_kernel(const Params p) {
+  __shared__ uint32_t sbits[SMEM_WORDS];
+  const bool shared_bits = p.nwords <= SMEM_WORDS;
+  if (shared_bits)
+    for (int k = threadIdx.x; k < p.nwords; k += blockDim.x) sbits[k] = __ldg(&p.occw[k]);
+  __syncthreads();
+
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= p.n) return;
   const size_t r3 = 3 * (size_t)i;
@@ -141,8 +171,9 @@ __global__ void __launch_bounds__(THREADS) integrate_kernel(const Params p) {
       const float tn = fmaxf(fmaxf(fmaxf(tmin, nx), ny), nz);
       const float tf = fminf(fminf(fminf(tmax, fx), fy), fz);
       const int b = (cz * p.nb[1] + cy) * p.nb[0] + cx;
+      const uint32_t word = shared_bits ? sbits[b >> 5] : __ldg(&p.occw[b >> 5]);
 
-      if (tf > tn && ((__ldg(&p.occw[b >> 5]) >> (b & 31)) & 1u)) {
+      if (tf > tn && ((word >> (b & 31)) & 1u)) {
         // ---- fine march of one brick visit (diffint.py:309-422) ----------
         const float enter = fmaxf(tn, 0.0f);
         const float fex = ((ox + dx * enter) - bxf * p.rbpu) * p.vpu;
@@ -158,13 +189,25 @@ __global__ void __launch_bounds__(THREADS) integrate_kernel(const Params p) {
         float t = enter;
         const size_t base = (size_t)b * BRICK_VOX;
         bool live = true;
+        // software pipelined: the step to the next voxel comes first, its
+        // record is requested, then this voxel's arithmetic runs while the
+        // load is in flight (the same float operations as before, in the
+        // same order)
+        size_t idx = base + (size_t)((vz * BRICK + vy) * BRICK + vx);
+        float4 r = __ldg(&p.rec[idx]);
         for (int s = 0; s < p.fine_iters && live; ++s) {
-          const size_t idx = base + (size_t)((vz * BRICK + vy) * BRICK + vx);
-          const float sg = __ldg(&p.tab[0][idx]);
-          const float ar = __ldg(&p.tab[1][idx]);
-          const float ag = __ldg(&p.tab[2][idx]);
-          const float ab = __ldg(&p.tab[3][idx]);
+          const float sg = r.x, ar = r.y, ag = r.z, ab = r.w;
           const float t_next = fminf(fminf(tmx, tmy), fminf(tmz, tf));
+          // fine step, tie rule of diffint.py:404-408
+          const bool use_x = (tmx < tmy) && (tmx < tmz);
+          const bool use_y = !(tmx < tmy) && (tmy < tmz);
+          if (use_x) { vx += sx; tmx = tmx + dlx; }
+          else if (use_y) { vy += sy; tmy = tmy + dly; }
+          else { vz += sz; tmz = tmz + dlz; }
+          const bool inside = !(((vx | vy | vz) & ~7) != 0 || t_next >= tf);
+          const size_t idx_next = base + (size_t)((vz * BRICK + vy) * BRICK + vx);
+          float4 r_next = r;
+          if (inside) r_next = __ldg(&p.rec[idx_next]);
           const float dl = fmaxf(t_next - t, 0.0f);
           const float e = expf(-fmaxf(sg, 0.0f) * dl);
           const float w = T * (1.0f - e);
@@ -181,23 +224,16 @@ __global__ void __launch_bounds__(THREADS) integrate_kernel(const Params p) {
             gsig = gsig + gcb * (Te * ab - sufb);
             gsig = gsig + gd * (Te * seg_d - sufd);
             gsig = (gsig - gt * tfin) * dl;
-            if (sg > 0.0f && gsig != 0.0f) atomicAdd(&p.grad[0][idx], gsig);
-            const float galr = gcr * w, galg = gcg * w, galb = gcb * w;
-            if (galr != 0.0f) atomicAdd(&p.grad[1][idx], galr);
-            if (galg != 0.0f) atomicAdd(&p.grad[2][idx], galg);
-            if (galb != 0.0f) atomicAdd(&p.grad[3][idx], galb);
+            const float4 g = make_float4(sg > 0.0f ? gsig : 0.0f, gcr * w, gcg * w, gcb * w);
+            if (g.x != 0.0f || g.y != 0.0f || g.z != 0.0f || g.w != 0.0f)
+              atomicAdd(&p.grad[idx], g);   // sm_90 float4 atomicAdd: one REDG.E.ADD.F32x4
           }
           Cr = Cr2; Cg = Cg2; Cb = Cb2; D = D2;
           T = T * e;
-          // fine step, tie rule of diffint.py:404-408
-          const bool use_x = (tmx < tmy) && (tmx < tmz);
-          const bool use_y = !(tmx < tmy) && (tmy < tmz);
-          if (use_x) { vx += sx; tmx = tmx + dlx; }
-          else if (use_y) { vy += sy; tmy = tmy + dly; }
-          else { vz += sz; tmz = tmz + dlz; }
-          const bool oob = ((vx | vy | vz) & ~7) != 0;
-          live = !(oob || t_next >= tf) && (T > p.t_eps);
+          live = inside && (T > p.t_eps);
           t = t_next;
+          idx = idx_next;
+          r = r_next;
         }
       }
       // ---- brick step on the axis of the nearest exit plane --------------
@@ -217,7 +253,7 @@ __global__ void __launch_bounds__(THREADS) integrate_kernel(const Params p) {
 }
 
 Params make_params(const float* orig, const float* dirs, int n,
-                   const float* const* carry, const float* const* tables,
+                   const float* const* carry, const float* rec,
                    const uint32_t* occw, const int* nb, const float* geo,
                    int quad, int fine_iters, float t_eps) {
   Params p = {};
@@ -225,8 +261,9 @@ Params make_params(const float* orig, const float* dirs, int n,
   p.dirs = dirs;
   p.n = n;
   for (int k = 0; k < 5; ++k) p.carry[k] = carry[k];
-  for (int k = 0; k < 4; ++k) p.tab[k] = tables[k];
+  p.rec = reinterpret_cast<const float4*>(rec);
   p.occw = occw;
+  p.nwords = (nb[0] * nb[1] * nb[2] + 31) / 32;
   for (int a = 0; a < 3; ++a) p.nb[a] = nb[a];
   p.vpu = geo[0];
   p.rvpu = geo[1];
@@ -241,39 +278,39 @@ Params make_params(const float* orig, const float* dirs, int n,
 
 }  // namespace
 
-// geo: vpu, 1/vpu, vpu/8, 8/vpu, then the volume extent (x, y, z), each
-// rounded to float32 on the host exactly as the plain version uses them.
+// rec: (NB*512, 4) float32 records, 16-byte aligned.  geo: vpu, 1/vpu,
+// vpu/8, 8/vpu, then the volume extent (x, y, z), each rounded to float32
+// on the host exactly as the plain version uses them.
 extern "C" int vt_integrate_fwd(const float* orig, const float* dirs, int n,
-                                const float* const* carry,
-                                const float* const* tables,
+                                const float* const* carry, const float* rec,
                                 const uint32_t* occw, const int* nb,
                                 const float* geo, int quad, int fine_iters,
                                 float t_eps, float* const* out,
                                 int32_t* flags, cudaStream_t stream) {
-  Params p = make_params(orig, dirs, n, carry, tables, occw, nb, geo, quad,
+  Params p = make_params(orig, dirs, n, carry, rec, occw, nb, geo, quad,
                          fine_iters, t_eps);
   for (int k = 0; k < 5; ++k) p.out[k] = out[k];
   p.flags = flags;
-  integrate_kernel<false><<<(n + THREADS - 1) / THREADS, THREADS, 0, stream>>>(p);
+  integrate_kernel<false><<<(n + FWD_THREADS - 1) / FWD_THREADS, FWD_THREADS, 0, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
+// grad: (NB*512, 4) float32, zeroed, 16-byte aligned.
 extern "C" int vt_integrate_bwd(const float* orig, const float* dirs, int n,
-                                const float* const* carry,
-                                const float* const* tables,
+                                const float* const* carry, const float* rec,
                                 const uint32_t* occw, const int* nb,
                                 const float* geo, int quad, int fine_iters,
                                 float t_eps, const float* const* cts,
-                                const float* const* totals,
-                                float* const* grads, cudaStream_t stream) {
-  Params p = make_params(orig, dirs, n, carry, tables, occw, nb, geo, quad,
+                                const float* const* totals, float* grad,
+                                cudaStream_t stream) {
+  Params p = make_params(orig, dirs, n, carry, rec, occw, nb, geo, quad,
                          fine_iters, t_eps);
   for (int k = 0; k < 5; ++k) {
     p.cts[k] = cts[k];
     p.tot[k] = totals[k];
   }
-  for (int k = 0; k < 4; ++k) p.grad[k] = grads[k];
-  integrate_kernel<true><<<(n + THREADS - 1) / THREADS, THREADS, 0, stream>>>(p);
+  p.grad = reinterpret_cast<float4*>(grad);
+  integrate_kernel<true><<<(n + BWD_THREADS - 1) / BWD_THREADS, BWD_THREADS, 0, stream>>>(p);
   return (int)cudaGetLastError();
 }
 

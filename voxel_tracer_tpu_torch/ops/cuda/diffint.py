@@ -12,6 +12,16 @@ Counterpart of `voxel_tracer_tpu/ops/pallas/diffint.py`.  The TPU kernel
   entering carry and the saved totals, scatter-adding d sigma and
   d albedo into packed gradient tables.
 
+Both kernels read one interleaved record table, (NB*512, 4) float32 of
+(sigma, albedo r, g, b) per voxel in `pack_rows`' brick-major order
+(`pack_records`), and the backward adds into one gradient record table of
+the same shape.  The record-level launchers `integrate_fwd_records` and
+`integrate_bwd_records` take and return those tables; the autograd
+Functions call them, so a training step packs once and unpacks once.
+`integrate_fwd_tiles` / `integrate_bwd_tiles` keep the Pallas interface
+(four packed tables in, four gradient tables out) and interleave on entry
+and split on exit.
+
 One thread marches one ray: a brick-level Amanatides-Woo DDA walks the
 ray's 8^3 bricks in t order (so the TPU kernel's four quadrant passes and
 its rect scan are not needed), skips bricks whose `occ_words` bit is 0,
@@ -27,10 +37,11 @@ rays of the TPU version were for its vector unit.  `tile_rows` and
 `interpret` are accepted and ignored.
 
 Each launcher runs its kernel for CUDA tensors and its plain PyTorch
-version (`integrate_fwd_plain`, `integrate_bwd_plain`: the same march,
-batched, with `index_add_` in place of the kernel's atomics) for CPU
-tensors; for a CUDA tensor it launches the kernel or raises, and never
-falls back.  `KERNEL_LAUNCHES` counts the launches of each kernel.
+version (`integrate_fwd_plain`, `integrate_bwd_plain`: the same march on
+the record table, batched, with `index_add_` in place of the kernel's
+vector reductions) for CPU tensors; for a CUDA tensor it launches the
+kernel or raises, and never falls back.  `KERNEL_LAUNCHES` counts the
+launches of each kernel.
 """
 
 from __future__ import annotations
@@ -45,6 +56,7 @@ from voxel_tracer_tpu_torch.ops.cuda import _build
 BIG = 3e37
 LANES = 128
 BRICK = 8
+BRICK_VOX = BRICK ** 3
 FINE_ITERS = 24
 
 KERNEL_LAUNCHES = {"integrate_fwd": 0, "integrate_bwd": 0}
@@ -85,11 +97,31 @@ def unpack_rows(rows, shape_zyx):
     return f.reshape(gz, gy, gx)
 
 
-def occ_words(sig_rows):
-    """Bit-packed brick occupancy of packed sigma rows: bit b of word b >> 5
-    is set iff brick b holds some sigma > 0.  (NW,) int32 (uint32 bits)."""
-    nb = sig_rows.shape[0] // 4
-    occ = sig_rows.reshape(nb, 4 * LANES).amax(dim=1) > 0.0
+def pack_records(sigma, albedo):
+    """(Z, Y, X) sigma and (Z, Y, X, 3) albedo -> (NB*512, 4) records
+    (sigma, albedo r, g, b), brick-major in pack_rows' order: the four
+    pack_rows tables stacked on the last axis, in one stack and one
+    permute.  Also the layout of the gradient records."""
+    bx, by, bz = brick_dims(sigma.shape)
+    f = torch.cat([sigma[..., None], albedo], dim=-1)
+    f = f.reshape(bz, BRICK, by, BRICK, bx, BRICK, 4).permute(0, 2, 4, 1, 3, 5, 6)
+    return f.reshape(bx * by * bz * BRICK_VOX, 4)
+
+
+def unpack_records(rec, shape_zyx):
+    """Inverse of pack_records: (NB*512, 4) -> (Z, Y, X, 4)."""
+    gz, gy, gx = shape_zyx
+    bx, by, bz = brick_dims(shape_zyx)
+    f = rec.reshape(bz, by, bx, BRICK, BRICK, BRICK, 4).permute(0, 3, 1, 4, 2, 5, 6)
+    return f.reshape(gz, gy, gx, 4)
+
+
+def occ_words(sig):
+    """Bit-packed brick occupancy of brick-major sigma (pack_rows' rows or
+    a record table's column 0): bit b of word b >> 5 is set iff brick b
+    holds some sigma > 0.  (NW,) int32 (uint32 bits)."""
+    nb = sig.numel() // BRICK_VOX
+    occ = sig.reshape(nb, BRICK_VOX).amax(dim=1) > 0.0
     nw = -(-nb // 32)
     occ = torch.cat([occ, occ.new_zeros(nw * 32 - nb)]).reshape(nw, 32)
     shifts = torch.arange(32, device=occ.device)
@@ -128,22 +160,23 @@ def _geometry(bsize, vpu):
 # Plain PyTorch version of both kernels
 # ---------------------------------------------------------------------------
 
-def _march(quad, occw, origins, dirs, carry, tables, *, bsize, vpu,
+def _march(quad, occw, origins, dirs, carry, rec, *, bsize, vpu,
            fine_iters, t_eps, bwd=None, stats=None):
-    """The kernels' march, batched over rays on any device.
+    """The kernels' march on the (NB*512, 4) record table, batched over
+    rays on any device.
 
-    Returns (T, Cr, Cg, Cb, D, flags).  With ``bwd = (cts, totals, grads)``
+    Returns (T, Cr, Cg, Cb, D, flags).  With ``bwd = (cts, totals, grad)``
     it also replays the gradient formulas of `diffint.py:353-370` and
-    `index_add_`s them into the flat (NB*512,) tables ``grads``.  With a
-    ``stats`` dict it adds the brick steps, brick visits (occupied bricks
-    marched) and fine steps it took."""
+    `index_add_`s them into the (NB*512, 4) gradient records ``grad``.
+    With a ``stats`` dict it adds the brick steps, brick visits (occupied
+    bricks marched) and fine steps it took, and the warp-steps
+    (`_count_warp_duplicates`)."""
     g = _geometry(bsize, vpu)
     dev = origins.device
     n = origins.shape[0]
     bx, by, bz = bsize
     nb = torch.tensor(bsize, device=dev)
     o, d = origins, dirs
-    sig, a0, a1, a2 = (t.reshape(-1) for t in tables)
 
     # volume slab test (diffint.py:147-155)
     rd = torch.clamp(torch.reciprocal(d), -BIG, BIG)
@@ -194,11 +227,10 @@ def _march(quad, occw, origins, dirs, carry, tables, *, bsize, vpu,
         if bool(visit.any()):
             v = visit.nonzero()[:, 0]
             r = ids[v]
-            out = _visit(oi[v], di[v], rdi[v], cf[v], b[v], tn[v], tf[v],
+            out = _visit(r, oi[v], di[v], rdi[v], cf[v], b[v], tn[v], tf[v],
                          sgn[r], stp[r], dl3[r],
-                         (T[r], Cr[r], Cg[r], Cb[r], D[r]), g,
-                         (sig, a0, a1, a2), fine_iters, t_eps,
-                         None if bwd is None else (r, *bwd), stats)
+                         (T[r], Cr[r], Cg[r], Cb[r], D[r]), g, rec,
+                         fine_iters, t_eps, bwd, stats)
             T[r], Cr[r], Cg[r], Cb[r], D[r] = out
             if stats is not None:
                 stats["brick_visits"] = stats.get("brick_visits", 0) + len(v)
@@ -215,10 +247,25 @@ def _march(quad, occw, origins, dirs, carry, tables, *, bsize, vpu,
     return T, Cr, Cg, Cb, D, flags
 
 
-def _visit(o, d, rd, cf, b, tn, tf, sgn, stp, dl3, state, g, tables,
+def _count_warp_duplicates(stats, rays, idx, nvox):
+    """Warp-steps of one fine step: ``rays`` (the live rays' indices) in
+    groups of 32 consecutive rays, the lanes of one warp of the kernel.
+    Adds the warp-steps, those in which two lanes read (and in the
+    backward update) the same voxel, and the lanes a warp-level
+    aggregation would merge away (lanes minus distinct voxels)."""
+    warp = rays // 32
+    lanes = torch.unique(warp, return_counts=True)[1]
+    key = torch.unique(warp * nvox + idx)
+    distinct = torch.unique(key // nvox, return_counts=True)[1]
+    stats["warp_steps"] = stats.get("warp_steps", 0) + len(lanes)
+    stats["dup_warp_steps"] = stats.get("dup_warp_steps", 0) + int((lanes > distinct).sum())
+    stats["dup_lanes"] = stats.get("dup_lanes", 0) + len(rays) - len(key)
+
+
+def _visit(rays, o, d, rd, cf, b, tn, tf, sgn, stp, dl3, state, g, rec,
            fine_iters, t_eps, bwd, stats):
-    """The fine march of one brick visit per ray (diffint.py:309-422)."""
-    sig, a0, a1, a2 = tables
+    """The fine march of one brick visit per ray (diffint.py:309-422);
+    ``rays``: the visiting rays' indices."""
     T, Cr, Cg, Cb, D = state
     enter = torch.clamp(tn, min=0.0)
     fe = ((o + d * enter[:, None]) - cf * g["rbpu"]) * g["vpu"]
@@ -228,19 +275,22 @@ def _visit(o, d, rd, cf, b, tn, tf, sgn, stp, dl3, state, g, tables,
                      max=BIG)
     t = enter
     live = torch.ones_like(enter, dtype=torch.bool)
-    base = b * (4 * LANES)
+    base = b * BRICK_VOX
     if bwd is not None:
-        rows, cts, totals, grads = bwd
-        gcr, gcg, gcb, gt, gd = (x[rows] for x in cts)
-        ctr, ctg, ctb, tfin, dtot = (x[rows] for x in totals)
+        cts, totals, grad = bwd
+        gcr, gcg, gcb, gt, gd = (x[rays] for x in cts)
+        ctr, ctg, ctb, tfin, dtot = (x[rays] for x in totals)
+        cols = torch.arange(4, device=rec.device)
+        grad_flat = grad.view(-1)
     for _ in range(fine_iters):
         if not bool(live.any()):
             break
-        if stats is not None:
-            stats["fine_steps"] = stats.get("fine_steps", 0) + int(live.sum())
         bit = (cell[:, 2] * BRICK + cell[:, 1]) * BRICK + cell[:, 0]
         idx = torch.where(live, base + bit, 0)
-        sg, ar, ag, ab = sig[idx], a0[idx], a1[idx], a2[idx]
+        if stats is not None:
+            stats["fine_steps"] = stats.get("fine_steps", 0) + int(live.sum())
+            _count_warp_duplicates(stats, rays[live], idx[live], rec.shape[0])
+        sg, ar, ag, ab = rec[idx].unbind(1)
         t_next = torch.minimum(torch.minimum(tm[:, 0], tm[:, 1]),
                                torch.minimum(tm[:, 2], tf))
         dl = torch.clamp(t_next - t, min=0.0)
@@ -256,8 +306,10 @@ def _visit(o, d, rd, cf, b, tn, tf, sgn, stp, dl3, state, g, tables,
                     + gcb * (Te * ab - (ctb - Cb2))
                     + gd * (Te * seg_d - (dtot - D2)) - gt * tfin) * dl
             gsig = torch.where(live & (sg > 0.0), gsig, 0.0)
-            for table, val in zip(grads, (gsig, gcr * w, gcg * w, gcb * w)):
-                table.index_add_(0, idx, val)
+            vals = torch.stack([gsig, gcr * w, gcg * w, gcb * w], dim=1)
+            # each record column adds in ray order, as four tables would
+            grad_flat.index_add_(0, (idx[:, None] * 4 + cols).reshape(-1),
+                                 vals.reshape(-1))
         Cr, Cg, Cb, D = Cr2, Cg2, Cb2, D2
         T = torch.where(live, T * e, T)
         tmx, tmy, tmz = tm.unbind(1)
@@ -272,28 +324,25 @@ def _visit(o, d, rd, cf, b, tn, tf, sgn, stp, dl3, state, g, tables,
     return T, Cr, Cg, Cb, D
 
 
-def integrate_fwd_plain(quad, occw, origins, dirs, carry, sig_rows, a0, a1,
-                        a2, *, bsize, vpu, fine_iters=FINE_ITERS, t_eps=0.0,
-                        stats=None):
-    """Plain PyTorch version of `integrate_fwd_tiles`, on any device.
-    ``stats``: optional dict that receives the march's brick steps, brick
-    visits and fine steps (the work of this call's data)."""
+def integrate_fwd_plain(quad, occw, origins, dirs, carry, rec, *, bsize, vpu,
+                        fine_iters=FINE_ITERS, t_eps=0.0, stats=None):
+    """Plain PyTorch version of `integrate_fwd_records`, on any device.
+    ``stats``: optional dict that receives the march's work on this call's
+    data: brick steps, brick visits, fine steps, and warp-steps with and
+    without a voxel shared by two lanes (`_count_warp_duplicates`)."""
     T, Cr, Cg, Cb, D, flags = _march(
-        int(quad), occw, origins, dirs, carry, (sig_rows, a0, a1, a2),
-        bsize=bsize, vpu=vpu, fine_iters=fine_iters, t_eps=t_eps,
-        stats=stats)
+        int(quad), occw, origins, dirs, carry, rec, bsize=bsize, vpu=vpu,
+        fine_iters=fine_iters, t_eps=t_eps, stats=stats)
     return Cr, Cg, Cb, T, D, flags
 
 
-def integrate_bwd_plain(quad, occw, origins, dirs, carry, sig_rows, a0, a1,
-                        a2, cts, totals, *, bsize, vpu, fine_iters=FINE_ITERS,
-                        t_eps=0.0):
-    """Plain PyTorch version of `integrate_bwd_tiles`, on any device."""
-    grads = torch.zeros((4,) + tuple(sig_rows.shape), device=sig_rows.device)
-    _march(int(quad), occw, origins, dirs, carry, (sig_rows, a0, a1, a2),
-           bsize=bsize, vpu=vpu, fine_iters=fine_iters, t_eps=t_eps,
-           bwd=(cts, totals, tuple(gr.view(-1) for gr in grads)))
-    return tuple(grads)
+def integrate_bwd_plain(quad, occw, origins, dirs, carry, rec, cts, totals, *,
+                        bsize, vpu, fine_iters=FINE_ITERS, t_eps=0.0):
+    """Plain PyTorch version of `integrate_bwd_records`, on any device."""
+    grad = torch.zeros(rec.shape, dtype=torch.float32, device=rec.device)
+    _march(int(quad), occw, origins, dirs, carry, rec, bsize=bsize, vpu=vpu,
+           fine_iters=fine_iters, t_eps=t_eps, bwd=(cts, totals, grad))
+    return grad
 
 
 # ---------------------------------------------------------------------------
@@ -305,11 +354,11 @@ def _lib():
     if not getattr(lib, "_vt_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         ptrs = ctypes.POINTER(ctypes.c_void_p)
-        common = [p, p, i, ptrs, ptrs, p, ctypes.POINTER(ctypes.c_int),
+        common = [p, p, i, ptrs, p, p, ctypes.POINTER(ctypes.c_int),
                   ctypes.POINTER(ctypes.c_float), i, i, f]
         lib.vt_integrate_fwd.argtypes = [*common, ptrs, p, p]
         lib.vt_integrate_fwd.restype = i
-        lib.vt_integrate_bwd.argtypes = [*common, ptrs, ptrs, ptrs, p]
+        lib.vt_integrate_bwd.argtypes = [*common, ptrs, ptrs, p, p]
         lib.vt_integrate_bwd.restype = i
         lib.vt_error_string.argtypes = [i]
         lib.vt_error_string.restype = ctypes.c_char_p
@@ -321,7 +370,7 @@ def _ptrs(tensors):
     return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
 
 
-def _common_args(occw, origins, dirs, carry, tables, bsize, vpu, quad,
+def _common_args(occw, origins, dirs, carry, rec, bsize, vpu, quad,
                  fine_iters, t_eps):
     """Checks the inputs both kernels share; returns their launch args."""
     dev = origins.device
@@ -335,36 +384,36 @@ def _common_args(occw, origins, dirs, carry, tables, bsize, vpu, quad,
     _build.check("dirs", dirs, torch.float32, (n, 3), dev)
     for name, t in zip(("T", "Cr", "Cg", "Cb", "D"), carry):
         _build.check(f"carry {name}", t, torch.float32, (n,), dev)
-    for name, t in zip(("sig_rows", "a0", "a1", "a2"), tables):
-        _build.check(name, t, torch.float32, (nbk * 4, LANES), dev)
+    _build.check("rec", rec, torch.float32, (nbk * BRICK_VOX, 4), dev)
+    if rec.data_ptr() % 16:
+        raise ValueError("rec is not 16-byte aligned: the kernels read a "
+                         "record with one 16-byte load")
     _build.check("occw", occw, torch.int32, (-(-nbk // 32),), dev)
     g = _geometry(bsize, vpu)
     geo = (ctypes.c_float * 7)(g["vpu"], g["rvpu"], g["bpu"], g["rbpu"],
                                *g["size"])
     return [origins.data_ptr(), dirs.data_ptr(), n, _ptrs(carry),
-            _ptrs(tables), occw.data_ptr(), (ctypes.c_int * 3)(*bsize), geo,
+            rec.data_ptr(), occw.data_ptr(), (ctypes.c_int * 3)(*bsize), geo,
             int(quad), int(fine_iters), float(t_eps)]
 
 
-def integrate_fwd_tiles(quad, occw, origins, dirs, carry, sig_rows, a0, a1,
-                        a2, *, bsize, vpu, tile_rows=8, fine_iters=FINE_ITERS,
-                        t_eps=0.0, interpret=False):
+def integrate_fwd_records(quad, occw, origins, dirs, carry, rec, *, bsize, vpu,
+                          fine_iters=FINE_ITERS, t_eps=0.0):
     """B6: march N rays through a (sub)volume of `bsize` bricks.
 
     quad: 0 (all rays) or +-1 (only rays whose dz >= 0 sign matches: the
-    slab sequencer's classes).  occw: `occ_words` of sig_rows.
+    slab sequencer's classes).  occw: `occ_words` of the records' sigma.
     origins, dirs: (N, 3) local space.  carry: (T, Cr, Cg, Cb, D), each
-    (N,), the march state entering this (sub)volume.  Tables: packed
-    (NB*4, 128) rows.  Returns (Cr, Cg, Cb, T, D, flags), each (N,);
+    (N,), the march state entering this (sub)volume.  rec: (NB*512, 4)
+    `pack_records` table.  Returns (Cr, Cg, Cb, T, D, flags), each (N,);
     flags bit 1 = marched in this call.
     """
     dev = _build.device_of(origins)
-    tables = (sig_rows, a0, a1, a2)
     if dev.type == "cpu":
-        return integrate_fwd_plain(quad, occw, origins, dirs, carry, *tables,
+        return integrate_fwd_plain(quad, occw, origins, dirs, carry, rec,
                                    bsize=bsize, vpu=vpu,
                                    fine_iters=fine_iters, t_eps=t_eps)
-    args = _common_args(occw, origins, dirs, carry, tables, bsize, vpu, quad,
+    args = _common_args(occw, origins, dirs, carry, rec, bsize, vpu, quad,
                         fine_iters, t_eps)
     n = origins.shape[0]
     out = torch.empty((5, n), dtype=torch.float32, device=dev)
@@ -381,39 +430,71 @@ def integrate_fwd_tiles(quad, occw, origins, dirs, carry, sig_rows, a0, a1,
     return cr, cg, cb, tr, dp, flags
 
 
-def integrate_bwd_tiles(quad, occw, origins, dirs, carry, sig_rows, a0, a1,
-                        a2, cts, totals, *, bsize, vpu, tile_rows=8,
-                        fine_iters=FINE_ITERS, t_eps=0.0, interpret=False):
+def integrate_bwd_records(quad, occw, origins, dirs, carry, rec, cts, totals, *,
+                          bsize, vpu, fine_iters=FINE_ITERS, t_eps=0.0):
     """B7: replay the B6 march and accumulate its gradients.
 
     carry: the march state that entered this (sub)volume in forward order
     (the replay's prefix).  cts: (gCr, gCg, gCb, gT, gD) cotangents;
     totals: the full path's (Cr, Cg, Cb, T_final, D_total); each (N,).
-    Returns (d_sig_rows, d_a0, d_a1, d_a2), packed like the tables.
+    Returns (NB*512, 4) gradient records (d sigma, d albedo r, g, b).
     """
     dev = _build.device_of(origins)
-    tables = (sig_rows, a0, a1, a2)
     if dev.type == "cpu":
-        return integrate_bwd_plain(quad, occw, origins, dirs, carry, *tables,
-                                   cts, totals, bsize=bsize, vpu=vpu,
+        return integrate_bwd_plain(quad, occw, origins, dirs, carry, rec, cts,
+                                   totals, bsize=bsize, vpu=vpu,
                                    fine_iters=fine_iters, t_eps=t_eps)
-    args = _common_args(occw, origins, dirs, carry, tables, bsize, vpu, quad,
+    args = _common_args(occw, origins, dirs, carry, rec, bsize, vpu, quad,
                         fine_iters, t_eps)
     n = origins.shape[0]
     for name, t in zip(("gCr", "gCg", "gCb", "gT", "gD", "Cr", "Cg", "Cb",
                         "T_final", "D_total"), (*cts, *totals)):
         _build.check(name, t, torch.float32, (n,), dev)
-    grads = torch.zeros((4,) + tuple(sig_rows.shape), dtype=torch.float32,
-                        device=dev)
+    grad = torch.zeros_like(rec)
     if n > 0:
         lib = _lib()
         with torch.cuda.device(dev):
             err = lib.vt_integrate_bwd(
-                *args, _ptrs(cts), _ptrs(totals), _ptrs(list(grads)),
+                *args, _ptrs(cts), _ptrs(totals), grad.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream)
         _build.raise_on(lib, err, "integrate_bwd")
         KERNEL_LAUNCHES["integrate_bwd"] += 1
-    return tuple(grads)
+    return grad
+
+
+def _records_of_tables(tables, bsize, dev):
+    """Four packed (NB*4, 128) tables -> (NB*512, 4) records."""
+    nbk = bsize[0] * bsize[1] * bsize[2]
+    for name, t in zip(("sig_rows", "a0", "a1", "a2"), tables):
+        _build.check(name, t, torch.float32, (nbk * 4, LANES), dev)
+    return torch.stack([t.reshape(-1) for t in tables], dim=1)
+
+
+def integrate_fwd_tiles(quad, occw, origins, dirs, carry, sig_rows, a0, a1,
+                        a2, *, bsize, vpu, tile_rows=8, fine_iters=FINE_ITERS,
+                        t_eps=0.0, interpret=False):
+    """B6 on the Pallas interface: `integrate_fwd_records` on the records of
+    four packed (NB*4, 128) tables (`pack_rows` of sigma and each albedo
+    channel).  Returns (Cr, Cg, Cb, T, D, flags), each (N,)."""
+    rec = _records_of_tables((sig_rows, a0, a1, a2), bsize,
+                             _build.device_of(origins))
+    return integrate_fwd_records(quad, occw, origins, dirs, carry, rec,
+                                 bsize=bsize, vpu=vpu, fine_iters=fine_iters,
+                                 t_eps=t_eps)
+
+
+def integrate_bwd_tiles(quad, occw, origins, dirs, carry, sig_rows, a0, a1,
+                        a2, cts, totals, *, bsize, vpu, tile_rows=8,
+                        fine_iters=FINE_ITERS, t_eps=0.0, interpret=False):
+    """B7 on the Pallas interface: `integrate_bwd_records` on four packed
+    tables.  Returns (d_sig_rows, d_a0, d_a1, d_a2), packed like the
+    tables."""
+    rec = _records_of_tables((sig_rows, a0, a1, a2), bsize,
+                             _build.device_of(origins))
+    grad = integrate_bwd_records(quad, occw, origins, dirs, carry, rec, cts,
+                                 totals, bsize=bsize, vpu=vpu,
+                                 fine_iters=fine_iters, t_eps=t_eps)
+    return tuple(grad.t().reshape(4, -1, LANES))
 
 
 # ---------------------------------------------------------------------------
@@ -421,6 +502,7 @@ def integrate_bwd_tiles(quad, occw, origins, dirs, carry, sig_rows, a0, a1,
 # ---------------------------------------------------------------------------
 
 def _pack_tables(sigma, albedo):
+    """The four packed tables `integrate_fwd_tiles` takes."""
     return tuple(pack_rows(f).contiguous() for f in
                  (sigma, albedo[..., 0], albedo[..., 1], albedo[..., 2]))
 
@@ -436,10 +518,10 @@ def _cotangents(g_color, g_trans, g_depth):
                  (g_color[:, 0], g_color[:, 1], g_color[:, 2], g_trans, g_depth))
 
 
-def _unpack_grads(grads, shape):
-    ds, da0, da1, da2 = grads
-    return (unpack_rows(ds, shape),
-            torch.stack([unpack_rows(x, shape) for x in (da0, da1, da2)], -1))
+def _unpack_grads(grad, shape):
+    """Gradient records -> (d sigma (Z, Y, X), d albedo (Z, Y, X, 3))."""
+    g = unpack_records(grad, shape)
+    return g[..., 0], g[..., 1:]
 
 
 def _rays(origin_l, dir_l):
@@ -451,13 +533,13 @@ class _Mega(torch.autograd.Function):
     @staticmethod
     def forward(ctx, sigma, albedo, origin_l, dir_l, vpu, t_eps):
         bsize = brick_dims(sigma.shape)
-        tables = _pack_tables(sigma, albedo)
-        occ = occ_words(tables[0])
+        rec = pack_records(sigma, albedo)
+        occ = occ_words(rec[:, 0])
         o, d = _rays(origin_l, dir_l)
-        cr, cg, cb, tr, dp, fl = integrate_fwd_tiles(
-            0, occ, o, d, _init_carry(o.shape[0], o.device), *tables,
+        cr, cg, cb, tr, dp, fl = integrate_fwd_records(
+            0, occ, o, d, _init_carry(o.shape[0], o.device), rec,
             bsize=bsize, vpu=vpu, t_eps=t_eps)
-        ctx.save_for_backward(o, d, occ, *tables, cr, cg, cb, tr, dp)
+        ctx.save_for_backward(o, d, occ, rec, cr, cg, cb, tr, dp)
         ctx.args = (bsize, vpu, t_eps, tuple(sigma.shape))
         flags = fl & 1
         ctx.mark_non_differentiable(flags)
@@ -465,14 +547,13 @@ class _Mega(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_color, g_trans, g_depth, _g_flags):
-        o, d, occ, *rest = ctx.saved_tensors
-        tables, totals = rest[:4], rest[4:]
+        o, d, occ, rec, *totals = ctx.saved_tensors
         bsize, vpu, t_eps, shape = ctx.args
-        grads = integrate_bwd_tiles(
-            0, occ, o, d, _init_carry(o.shape[0], o.device), *tables,
+        grad = integrate_bwd_records(
+            0, occ, o, d, _init_carry(o.shape[0], o.device), rec,
             _cotangents(g_color, g_trans, g_depth), tuple(totals),
             bsize=bsize, vpu=vpu, t_eps=t_eps)
-        return (*_unpack_grads(grads, shape), None, None, None, None)
+        return (*_unpack_grads(grad, shape), None, None, None, None)
 
 
 def render_density_mega(sigma, albedo, origin_l, dir_l, vpu,
@@ -491,25 +572,21 @@ def render_density_mega(sigma, albedo, origin_l, dir_l, vpu,
     return {"color": color, "trans": trans, "depth": depth, "flags": flags}
 
 
-def _slab_layout(bsize, n_slabs):
+def _slab_inputs(rec, o, vpu, n_slabs, bsize):
+    """Per slab: its origins (z shifted into the slab's frame), records
+    and occupancy words."""
     bx, by, bz = bsize
     if bz % n_slabs:
         raise ValueError(f"{bz} Z bricks do not split into {n_slabs} slabs")
-    bz_s = bz // n_slabs
-    return (bx, by, bz_s), bx * by * bz_s * 4
-
-
-def _slab_inputs(tables, o, vpu, n_slabs, bsize):
-    """Per slab: its origins (z shifted into the slab's frame), tables and
-    occupancy words."""
-    sub, rows = _slab_layout(bsize, n_slabs)
+    sub = (bx, by, bz // n_slabs)
+    nv = bx * by * sub[2] * BRICK_VOX
     z_step = sub[2] * BRICK / float(vpu)
     out = []
     for s in range(n_slabs):
         o_s = o.clone()
         o_s[:, 2] = o[:, 2] - s * z_step
-        tb = tuple(t[s * rows:(s + 1) * rows] for t in tables)
-        out.append((o_s, tb, occ_words(tb[0])))
+        r = rec[s * nv:(s + 1) * nv]
+        out.append((o_s, r, occ_words(r[:, 0])))
     return sub, out
 
 
@@ -517,9 +594,9 @@ class _Slabs(torch.autograd.Function):
     @staticmethod
     def forward(ctx, sigma, albedo, origin_l, dir_l, vpu, n_slabs, t_eps):
         bsize = brick_dims(sigma.shape)
-        tables = _pack_tables(sigma, albedo)
+        rec = pack_records(sigma, albedo)
         o, d = _rays(origin_l, dir_l)
-        sub, slabs = _slab_inputs(tables, o, vpu, n_slabs, bsize)
+        sub, slabs = _slab_inputs(rec, o, vpu, n_slabs, bsize)
         finals, entries = {}, {}
         for cls in (1, -1):
             state = _init_carry(o.shape[0], o.device)
@@ -527,9 +604,9 @@ class _Slabs(torch.autograd.Function):
             order = range(n_slabs) if cls > 0 else range(n_slabs - 1, -1, -1)
             for s in order:
                 ent[s] = state
-                o_s, tb, occ = slabs[s]
-                cr, cg, cb, tr, dp, _ = integrate_fwd_tiles(
-                    cls, occ, o_s, d, state, *tb, bsize=sub, vpu=vpu,
+                o_s, r, occ = slabs[s]
+                cr, cg, cb, tr, dp, _ = integrate_fwd_records(
+                    cls, occ, o_s, d, state, r, bsize=sub, vpu=vpu,
                     t_eps=t_eps)
                 state = (tr, cr, cg, cb, dp)
             finals[cls], entries[cls] = state, ent
@@ -538,7 +615,7 @@ class _Slabs(torch.autograd.Function):
         T, Cr, Cg, Cb, D = (torch.where(pos, a, b)
                             for a, b in zip(finals[1], finals[-1]))
         saved = [x for cls in (1, -1) for ent in entries[cls] for x in ent]
-        ctx.save_for_backward(o, d, *tables, Cr, Cg, Cb, T, D, *saved)
+        ctx.save_for_backward(o, d, rec, Cr, Cg, Cb, T, D, *saved)
         ctx.args = (bsize, vpu, n_slabs, t_eps, tuple(sigma.shape))
         flags = torch.zeros_like(T, dtype=torch.int32)
         ctx.mark_non_differentiable(flags)
@@ -546,25 +623,25 @@ class _Slabs(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_color, g_trans, g_depth, _g_flags):
-        o, d, *rest = ctx.saved_tensors
-        tables, totals, saved = rest[:4], tuple(rest[4:9]), rest[9:]
+        o, d, rec, *rest = ctx.saved_tensors
+        totals, saved = tuple(rest[:5]), rest[5:]
         bsize, vpu, n_slabs, t_eps, shape = ctx.args
         entries = {cls: [tuple(saved[(k * n_slabs + s) * 5:
                                      (k * n_slabs + s + 1) * 5])
                          for s in range(n_slabs)]
                    for k, cls in enumerate((1, -1))}
-        sub, slabs = _slab_inputs(tables, o, vpu, n_slabs, bsize)
+        sub, slabs = _slab_inputs(rec, o, vpu, n_slabs, bsize)
         cts = _cotangents(g_color, g_trans, g_depth)
         grads = []
-        for s, (o_s, tb, occ) in enumerate(slabs):
-            # gradients add across slabs and across the two dz classes
-            g1, g2 = (integrate_bwd_tiles(cls, occ, o_s, d, entries[cls][s],
-                                          *tb, cts, totals, bsize=sub,
-                                          vpu=vpu, t_eps=t_eps)
+        for s, (o_s, r, occ) in enumerate(slabs):
+            # gradients add across the two dz classes; slabs own disjoint rows
+            g1, g2 = (integrate_bwd_records(cls, occ, o_s, d, entries[cls][s],
+                                            r, cts, totals, bsize=sub,
+                                            vpu=vpu, t_eps=t_eps)
                       for cls in (1, -1))
-            grads.append([a + b for a, b in zip(g1, g2)])
-        full = [torch.cat([g_[i] for g_ in grads]) for i in range(4)]
-        return (*_unpack_grads(full, shape), None, None, None, None, None)
+            grads.append(g1 + g2)
+        return (*_unpack_grads(torch.cat(grads), shape), None, None, None, None,
+                None)
 
 
 def render_density_slabs(sigma, albedo, origin_l, dir_l, vpu,
