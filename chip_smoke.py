@@ -18,7 +18,11 @@ them:
   coherent kernel (B5), then B5 against its plain version on the frame's
   own primary and shadow ray lists, and an unbaked two-volume scene;
 - the independent DDA: `render_indep` flat and lambert at 1920x1088 on the
-  bench scene (B3) and `trace_rays_indep` on 1 M random rays (B4).
+  bench scene (B3) and `trace_rays_indep` on 1 M random rays (B4);
+- the mega kernels' edges: B2 on the lit frame's own shadow-ray list and
+  on a long sparse volume whose rays run out of the 256-step budget
+  (`profiling.budget_scene`: 2048 bricks, and 32,800 bricks whose bitmap
+  outgrows 4 KB), B1 on a 256^3 grid.
 
 Each main path runs with the launch counts set to 0 just before it and
 read just after.  It prints one line per phase, then the card's name and
@@ -35,8 +39,10 @@ time per call over serialized calls, host work of the wrapper included;
 larger of the bytes the call must move over 3.35 TB/s and its FP32
 operations (counted from this run's data, per-unit counts read off the
 kernel sources) over 67 TFLOP/s, the H100 SXM's published peaks.  The
-two integrate rows (B6, B7) also carry `differential_ms` (per-call time
-from two call counts), `dup_warp_step_share` (share of warp-steps in which
+mega rows (B1, B2) and the two integrate rows (B6, B7) also carry
+`differential_ms` (per-call time from two call counts); B2 carries its
+numbers on the lit frame's shadow-ray list (`lit_shadow_rays`), B6 and B7
+`dup_warp_step_share` (share of warp-steps in which
 two of 32 consecutive rays meet one voxel, counted by the plain march) at
 training shapes, and the same numbers on diff_lambert_512.  Serialized
 calls find their tables warm in L2, as the trainer's backward finds the
@@ -83,8 +89,8 @@ TRAIN_G, TRAIN_VIEWS, TRAIN_PX, TRAIN_VPU = 128, 32, 64, 20.0
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
 # FP32 operations per unit of work, counted off the kernel sources
-MEGA_OPS_PER_RAY = 120          # raygen, slab test, DDA set-up, shading (mega.cu)
-MEGA_OPS_PER_STEP = 8           # one DDA step, brick entry amortized
+MEGA_OPS_PER_RAY = 80           # slab test 38, DDA set-up 41 (mega.cu)
+MEGA_OPS_PER_STEP = 8           # compares and add of a step 4, brick entry 28 amortized
 INT_OPS_PER_RAY = 65            # slab test, signs, first brick (diffint.cu)
 INT_OPS_PER_BRICK_STEP = 38     # brick planes, [tn, tf], exit axis
 INT_OPS_PER_VISIT = 43          # fine entry of an occupied brick
@@ -264,38 +270,97 @@ def random_rays():
     return torch.from_numpy(o).cuda(), torch.from_numpy(d).cuda()
 
 
-def phase_trace_rays(mv, o_t, d_t):
+def compare_mega_traces(tag, tables, o_t, d_t, fetch_mat):
+    """B2 against its plain version on one ray list (`compare_traces`).
+    Returns (kernel outputs, max |dt|)."""
     from voxel_tracer_tpu_torch.ops.cuda import mega
-    kr = mega.trace_rays(o_t, d_t, mv.tables, fetch_mat=True)
-    pr = mega.trace_rays_plain(o_t, d_t, mv.tables, fetch_mat=True)
+    kr = mega.trace_rays(o_t, d_t, tables, fetch_mat=fetch_mat)
+    pr = mega.trace_rays_plain(o_t, d_t, tables, fetch_mat=fetch_mat)
     torch.cuda.synchronize()
-    hk, hp = kr["t"] < mega.BIG, pr["t"] < mega.BIG
-    both = hk & hp
-    dt = float((kr["t"][both] - pr["t"][both]).abs().max())
-    eq = {f: bool(torch.equal(kr[f], pr[f])) for f in ("mat", "ax", "steps", "resolved")}
-    log(f"[trace_rays] {N_RAYS} random local rays: hit mismatches "
-        f"{int((hk != hp).sum())}, equal {eq}, t max |d| {dt:.3g}, "
-        f"hit fraction {float(hk.float().mean()):.4f}, "
-        f"unresolved {int((~kr['resolved']).sum())}")
-    require(bool(torch.equal(hk, hp)), "trace_rays hit masks differ")
-    require(all(eq.values()), f"trace_rays fields differ: {eq}")
-    require(dt <= T_ATOL, f"trace_rays t differs by {dt}")
-    ms = cuda_ms(lambda i: mega.trace_rays(o_t, d_t, mv.tables, fetch_mat=True), 20)
-    dev_ms = kernel_device_ms(lambda: mega.trace_rays(o_t, d_t, mv.tables, fetch_mat=True),
-                              20, "mega_rays_kernel")
-    plain_ms = cuda_ms(lambda i: mega.trace_rays_plain(o_t, d_t, mv.tables,
-                                                       fetch_mat=True), 2)
-    dev = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
-    log(f"[trace_rays] kernel {ms:.4f} ms (device time per launch {dev}), plain "
-        f"{plain_ms:.2f} ms per {N_RAYS} rays ({N_RAYS / ms * 1e3:.4g} vs "
-        f"{N_RAYS / plain_ms * 1e3:.4g} rays/s)")
-    tb = mv.tables
-    nbytes = N_RAYS * (24 + 8) + tb.bocc.numel() * 4 + tb.occw.numel() * 4 + tb.matb.numel()
-    b = bound(nbytes, N_RAYS * MEGA_OPS_PER_RAY
-              + int(kr["steps"].sum()) * MEGA_OPS_PER_STEP)
-    log(f"[trace_rays] bound {b[0]:.4f} ms ({b[1]}): {nbytes} bytes, "
-        f"{int(kr['steps'].sum())} DDA steps")
-    return dict(err=dt, ms=ms, dev_ms=dev_ms, plain_ms=plain_ms, bound=b)
+    return kr, compare_traces(tag, kr, pr)
+
+
+def mega_bound(n, per_ray_bytes, tb, steps, camera):
+    """Rays (or camera floats and pixels) read / written once, the tables
+    read once; operations per ray (and pixel) and per DDA step."""
+    nbytes = (n * per_ray_bytes + tb.bitmap.numel() * 4 + tb.occw.numel() * 4
+              + tb.matb.numel() + (tb.pal.numel() * 4 + 29 * 4 if camera else 0))
+    ops = (n * (MEGA_OPS_PER_RAY + (CAM_OPS_PER_PIXEL if camera else 0))
+           + steps * MEGA_OPS_PER_STEP)
+    return nbytes, bound(nbytes, ops)
+
+
+def phase_trace_rays(tag, mv, o_t, d_t, fetch_mat):
+    """[trace_rays ...] B2 on one ray list: held against its plain
+    version, timed, bounded; DDA steps a second from the device time."""
+    from voxel_tracer_tpu_torch.ops.cuda import mega
+    kr, dt = compare_mega_traces(tag, mv.tables, o_t, d_t, fetch_mat)
+    n, steps = o_t.shape[0], int(kr["steps"].sum())
+    nbytes, b = mega_bound(n, 24 + 8, mv.tables, steps, False)
+    t = time_kernel(tag, lambda: mega.trace_rays(o_t, d_t, mv.tables, fetch_mat=fetch_mat),
+                    lambda: mega.trace_rays_plain(o_t, d_t, mv.tables, fetch_mat=fetch_mat),
+                    (10, 40), "mega_rays_kernel", n, b)
+    per_s = "not measured" if t["dev_ms"] is None else f"{steps / t['dev_ms'] * 1e3:.4g}"
+    log(f"[{tag}] {nbytes} bytes, {steps} DDA steps ({steps / n:.2f} a ray), "
+        f"{per_s} DDA steps/s (device time)")
+    return dict(t, err=dt, steps=steps)
+
+
+def lit_shadow_rays(mv, cam):
+    """The volume-local shadow-ray list that the lit frame hands B2,
+    captured from `render_lambert_mega`'s own shadow pass."""
+    from voxel_tracer_tpu_torch.ops.cuda import mega
+    lists = []
+
+    def capture(o, d, tables):
+        lists.append((o, d))
+        return mega.trace_rays(o, d, tables)
+    mega._lambert_frame(mv, cam, W, H, SUN, None, 0.2, mega.render_mega_tiles, capture)
+    return lists[0]
+
+
+def phase_budget():
+    """[budget] B2 on the long sparse volume of `profiling.budget_scene`:
+    65,536 rays, most of which run out of the 256-step budget; at 4096
+    voxels (2048 bricks) and at 65,600 (32,800 bricks, a 1025-word
+    bitmap)."""
+    from voxel_tracer_tpu_torch.ops.cuda import mega
+    from voxel_tracer_tpu_torch.utils import profiling
+    err = 0.0
+    for length in (4096, 65600):
+        g, o, d, vpu = profiling.budget_scene(length=length, n_rays=65536)
+        tb = mega.pack_tables(g, np.ones((256, 3), np.float32), vpu, "cuda")
+        tag = f"budget {length} voxels"
+        kr, dt = compare_mega_traces(tag, tb, torch.from_numpy(o).cuda(),
+                                     torch.from_numpy(d).cuda(), True)
+        exhausted = int((~kr["resolved"]).sum())
+        hits = int((kr["t"] < mega.BIG).sum())
+        log(f"[{tag}] {int(tb.bocc.sum())} of {tb.bocc.numel()} bricks occupied, "
+            f"{tb.bitmap.numel()}-word bitmap; {exhausted} rays exhausted the "
+            f"{int(kr['steps'].max())}-step budget, {hits} hit")
+        require(exhausted > 0 and hits > 0, f"{tag}: {exhausted} exhausted, {hits} hits")
+        err = max(err, dt)
+    return err
+
+
+def phase_large_grid():
+    """[large grid] B1 on a 256^3 noise volume (32,768 bricks, a 1024-word
+    bitmap) against the plain version, and its device time."""
+    from voxel_tracer_tpu_torch.models.volume import VoxelVolume
+    from voxel_tracer_tpu_torch.ops.cuda import mega
+    t0 = time.perf_counter()
+    big = VoxelVolume.noise_filled((256, 256, 256), pos=(0, 0, 0), vpu=80.0)
+    mv = mega.MegaVolume(big, device="cuda")
+    log(f"[large grid] 256^3 noise volume built and packed in "
+        f"{time.perf_counter() - t0:.1f} s")
+    cam = bench_camera(0.0, W / H)
+    err = phase_flat("large grid", mv, cam)
+    cam_p = mega.mega_camera(mv, cam, SUN, W, H)
+    dev = kernel_device_ms(lambda: mega.render_mega_tiles(cam_p, mv.tables, width=W,
+                                                          height=H), 16, "mega_camera_kernel")
+    log(f"[large grid] device time per launch "
+        f"{'not measured' if dev is None else f'{dev:.4f} ms'}")
+    return err
 
 
 def phase_flat(tag, mv, cam):
@@ -365,11 +430,19 @@ def phase_timing(mv):
         require((launched["mega_camera"] > 0) == kernel,
                 f"{name} timing launched the kernel {launched} times")
         out[name] = ms[1]
+        out[f"{name} differential"] = slope
     dev_ms = kernel_device_ms(lambda: flat(mega.render_mega_tiles)(0), 16,
                               "mega_camera_kernel")
     log(f"[timing] flat kernel device time per launch "
         f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}")
     out["flat kernel device"] = dev_ms
+    for name, fn in (("flat render_mega", entry(mega.render_mega)),
+                     ("lit render_lambert_mega", entry(mega.render_lambert_mega))):
+        wall, busy, kernels = device_busy(lambda: [fn(i) for i in range(8)])
+        busy_s = "not measured" if busy is None else f"{busy / 8:.4f} ms/frame"
+        idle = "not measured" if busy is None else f"{1.0 - busy / wall:.4f}"
+        log(f"[timing] {name} profiled 8 frames: wall {wall / 8:.4f} ms/frame, "
+            f"device busy {busy_s} in {kernels / 8:.1f} kernels/frame, idle share {idle}")
     return out
 
 
@@ -985,23 +1058,21 @@ def main():
     launches, frame_steps = phase_main_path(mv)
     err_cam = phase_small_reference()
     o_rand, d_rand = random_rays()
-    rays = phase_trace_rays(mv, o_rand, d_rand)
+    rays = phase_trace_rays("trace_rays random", mv, o_rand, d_rand, True)
     err_cam = max(err_cam, phase_flat("flat frame", mv, bench_camera(0.0, W / H)))
     err_cam = max(err_cam, phase_lit(mv))
-    t0 = time.perf_counter()
-    big = VoxelVolume.noise_filled((256, 256, 256), pos=(0, 0, 0), vpu=80.0)
-    mv_big = mega.MegaVolume(big, device="cuda")
-    log(f"[large grid] 256^3 noise volume built and packed in "
-        f"{time.perf_counter() - t0:.1f} s")
-    err_cam = max(err_cam, phase_flat("large grid", mv_big, bench_camera(0.0, W / H)))
-    del mv_big
+    o_sh, d_sh = lit_shadow_rays(mv, bench_camera(0.0, W / H))
+    shadow = phase_trace_rays("trace_rays lit shadow", mv, o_sh, d_sh, False)
+    del o_sh, d_sh
+    err_rays = max(rays["err"], shadow["err"], phase_budget())
+    err_cam = max(err_cam, phase_large_grid())
     times = phase_timing(mv)
-    tb = mv.tables
-    cam_bytes = (W * H * 12 + 29 * 4 + tb.bocc.numel() * 4 + tb.occw.numel() * 4
-                 + tb.matb.numel() + tb.pal.numel() * 4)
-    cam_bound = bound(cam_bytes, W * H * MEGA_OPS_PER_RAY + frame_steps * MEGA_OPS_PER_STEP)
+    cam_bytes, cam_bound = mega_bound(W * H, 12, mv.tables, frame_steps, True)
+    dev = times["flat kernel device"]
     log(f"[timing] camera kernel bound {cam_bound[0]:.4f} ms ({cam_bound[1]}): "
-        f"{cam_bytes} bytes, {frame_steps} DDA steps")
+        f"{cam_bytes} bytes, {frame_steps} DDA steps; "
+        f"{'not measured' if dev is None else f'{frame_steps / dev * 1e3:.4g}'} "
+        f"DDA steps/s (device time)")
 
     scene = diff_scene()
     diffint_res = phase_diffint(scene)
@@ -1023,14 +1094,18 @@ def main():
         dict(name="mega_camera", route="cuda", source=src,
              replaces="voxel_tracer_tpu/ops/pallas/mega.py:2536",
              launches=launches["mega_camera"], max_abs_err=err_cam,
-             ms=times["flat kernel"], device_ms=times["flat kernel device"],
-             plain_ms=times["flat plain"],
+             ms=times["flat kernel"], differential_ms=times["flat kernel differential"],
+             device_ms=times["flat kernel device"], plain_ms=times["flat plain"],
              bound_ms=cam_bound[0], bound_by=cam_bound[1], library_ms=None),
         dict(name="mega_rays", route="cuda", source=src,
              replaces="voxel_tracer_tpu/ops/pallas/mega.py:2810",
-             launches=launches["mega_rays"], max_abs_err=rays["err"],
-             ms=rays["ms"], device_ms=rays["dev_ms"], plain_ms=rays["plain_ms"],
-             bound_ms=rays["bound"][0], bound_by=rays["bound"][1], library_ms=None)]
+             launches=launches["mega_rays"], max_abs_err=err_rays,
+             ms=rays["ms"], differential_ms=rays["diff_ms"], device_ms=rays["dev_ms"],
+             plain_ms=rays["plain_ms"], bound_ms=rays["bound"][0],
+             bound_by=rays["bound"][1], library_ms=None,
+             lit_shadow_rays=dict(ms=shadow["ms"], differential_ms=shadow["diff_ms"],
+                                  device_ms=shadow["dev_ms"], plain_ms=shadow["plain_ms"],
+                                  bound_ms=shadow["bound"][0], bound_by=shadow["bound"][1]))]
     for name, mode, line, err in (
             ("integrate_fwd", "fwd", 511, max(train["err_fwd"], diffint_res["err_fwd"])),
             ("integrate_bwd", "bwd", 544, max(train["err_bwd"], diffint_res["err_bwd"]))):

@@ -6,7 +6,8 @@ the test, never at import).  Run on a machine with an NVIDIA GPU:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Tolerances: mega kernels: hits, materials, axes, steps and resolved flags
-equal; depth within 1e-5; image within 1 LSB (expf may differ by an ulp).
+equal; depth within 1e-5 (0 on ray lists: the same float program); image
+within 1 LSB (expf may differ by an ulp).
 Integrate kernels (record layout): flags equal; color, trans and depth
 within 1e-5 (expf may differ by an ulp); each gradient column within
 1e-4 x its max|g| (the kernel's vector reductions and `index_add_` sum in
@@ -25,6 +26,7 @@ from voxel_tracer_tpu_torch.models.camera import Camera
 from voxel_tracer_tpu_torch.models.volume import VoxelVolume
 from voxel_tracer_tpu_torch.ops.cuda import (coherent, diffint, indep,
                                              integrate, mega, renderer_fast)
+from voxel_tracer_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -93,6 +95,31 @@ def test_lit_frame_kernel_matches_plain(cuda):
     for f in ("depth", "normal", "material", "steps", "irradiance"):
         assert torch.equal(k[f], p[f]), f
     assert int((k["image"].int() - p["image"].int()).abs().max()) <= 1
+
+
+def _assert_mega_trace_equal(k, p):
+    for f in ("mat", "ax", "steps", "resolved"):
+        assert torch.equal(k[f], p[f]), f
+    assert torch.equal(k["t"] < mega.BIG, p["t"] < mega.BIG)
+    assert float((k["t"] - p["t"]).abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("length", [4096, 65600])
+def test_ray_kernel_step_budget(cuda, length):
+    """The long sparse volume of `profiling.budget_scene`: most rays run out
+    of the 256-step budget, some hit, some cross brick corners; at 4096
+    voxels (2048 bricks, a 64-word bitmap) and 65600 (32,800 bricks, 1025
+    words)."""
+    g, o, d, vpu = profiling.budget_scene(length=length, n_rays=65536)
+    tb = mega.pack_tables(g, np.ones((256, 3), np.float32), vpu, cuda)
+    assert tb.bitmap.numel() == (length // 8 * 4 + 31) // 32
+    o_t, d_t = torch.from_numpy(o).to(cuda), torch.from_numpy(d).to(cuda)
+    k = mega.trace_rays(o_t, d_t, tb, fetch_mat=True)
+    p = mega.trace_rays_plain(o_t, d_t, tb, fetch_mat=True)
+    _assert_mega_trace_equal(k, p)
+    exhausted = int((~k["resolved"]).sum())
+    assert exhausted > 65536 // 2 and bool((k["t"] < mega.BIG).any())
+    assert bool((k["steps"][~k["resolved"]] == 256).all())
 
 
 def test_ray_kernel_empty_list(cuda):

@@ -18,6 +18,7 @@ from voxel_tracer_tpu.ops import dda as jdda
 from voxel_tracer_tpu.ops.math3d import quat_from_axis_angle, quat_to_mat3
 
 from voxel_tracer_tpu_torch.ops import dda as tdda
+from voxel_tracer_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -92,12 +93,18 @@ def _case(name):
         # a tiny budget forces exhaustion on most rays
         vol = VoxelVolume.noise_filled((64, 64, 64))
         return vol, _camera_rays((0, 0, -4), (0, 0, 0), 16, 16)
+    if name == "long_sparse":
+        # the default budget runs out on most rays: a 288-brick cut of the
+        # card tests' long sparse volume (profiling.budget_scene)
+        g, o_l, d_l, vpu = profiling.budget_scene(length=2304, n_rays=512)
+        vol = VoxelVolume(g, vpu=vpu)
+        return vol, (o_l - np.asarray(vol.pivot), d_l)
     raise ValueError(name)
 
 
 CASES = ["axis_aligned", "oblique", "camera_inside", "rotated", "noise",
          "non_multiple_of_brick", "random_directions", "axis_parallel",
-         "step_budget"]
+         "step_budget", "long_sparse"]
 
 
 @pytest.mark.parametrize("name", CASES)
@@ -127,10 +134,14 @@ def test_dda_matches_jax(name):
     np.testing.assert_array_equal(out["step_sign"], ref["step_sign"])
     np.testing.assert_array_equal(out["valid"], ref["valid"])
     assert (out["steps"] <= max_steps).all()
-    # an unresolved ray spent the whole budget and is a miss
+    # an unresolved ray spent the whole budget and is a miss: the reference
+    # loop's cap of 2 * max_steps iterations never stopped a walk earlier
+    # (the kernels, which walk without that cap, rely on it)
     unresolved = ~out["resolved"]
     assert (out["valid"] & ~hit & (out["steps"] >= max_steps))[unresolved].all()
     if name == "step_budget":
         assert unresolved.any()
     else:
         assert hit.any()
+    if name == "long_sparse":
+        assert unresolved.sum() > len(unresolved) // 2

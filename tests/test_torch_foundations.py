@@ -232,3 +232,29 @@ def test_packed_tables_decode_to_grid():
     jt = jmega.pack_mega(g, 20.0)
     np.testing.assert_array_equal(
         np.asarray(jt.matw).view(np.uint8).reshape(-1, 512), tb.matb.numpy())
+
+
+@pytest.mark.parametrize("shape", [(21, 13, 17), (40, 48, 56), (8, 512, 512),
+                                   (8, 512, 520)])
+def test_brick_bitmap_of_packed_tables(shape):
+    """pack_tables' brick bitmap: bit b % 32 of word b // 32 is set iff
+    bocc[b] != 0, on brick counts that are not multiples of 32 (18, 210)
+    and at the 4096-brick edge (4096, 4160); where it fits in 128 words it
+    equals the indep kernels' bitmap (`indep.pack_brickbits`)."""
+    from voxel_tracer_tpu_torch.ops.cuda import indep as tindep
+    rng = np.random.RandomState(sum(shape))
+    g = np.where(rng.rand(*shape) < 2e-3, 7, 0).astype(np.uint8)
+    tb = tmega.pack_tables(g, np.ones((256, 3), np.float32), 20.0, device="cpu")
+    nb = int(np.prod(tb.bsize))
+    bocc = tb.bocc.numpy()
+    assert 0 < bocc.sum() < nb
+    words = tb.bitmap.numpy()
+    assert words.dtype == np.int32 and words.shape == ((nb + 31) // 32,)
+    b = np.arange(words.size * 32)
+    bits = (words.view(np.uint32)[b >> 5] >> (b & 31)) & 1
+    np.testing.assert_array_equal(bits[:nb] == 1, bocc != 0)
+    assert not bits[nb:].any()
+    if nb <= 4096:
+        ref = tindep.pack_brickbits(tb.bocc).numpy()
+        np.testing.assert_array_equal(ref[:words.size], words)
+        assert not ref[words.size:].any()

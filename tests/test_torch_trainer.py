@@ -146,6 +146,31 @@ def test_kernel_backend_halves_the_loss():
     assert losses[-1] < 0.5 * losses[0], losses
 
 
+@pytest.mark.parametrize("jax_name,port_name", [("xla", "wavefront"),
+                                                ("pallas", "kernel")])
+def test_jax_backend_names_train_like_the_port_names(views, jax_name, port_name):
+    """A config carried over from the JAX package (backend "xla" or
+    "pallas") trains exactly as the port's name for the same backend (the
+    kernel backend on a 16^3 grid over the same [0, 1]^3: its bricks are
+    whole)."""
+    o, d, c = views
+    losses, params = [], []
+    for name in (jax_name, port_name):
+        _, cfg = _configs(3)
+        cfg.backend = name
+        if port_name == "kernel":
+            cfg.grid_size, cfg.vpu = (16, 16, 16), 16.0
+        tr = Trainer(cfg, device="cpu")
+        assert tr.cfg.backend == port_name
+        losses.append(tr.fit(o, d, c, log_every=1, log_fn=lambda s: None))
+        params.append(tr.params)
+    assert len(losses[0]) == 3 and losses[0] == losses[1]
+    for k in ("sigma", "albedo"):
+        assert torch.equal(params[0][k], params[1][k]), k
+    with pytest.raises(ValueError):
+        Trainer(TrainConfig(backend="triton"), device="cpu")
+
+
 def test_make_dataset_matches_jax():
     from voxel_tracer_tpu.trainer import make_dataset as j_make_dataset
     rng = np.random.RandomState(3)

@@ -29,6 +29,9 @@ unless shading is 'trace'), and for the lit frame `shadow_tile_rows`, `use_brick
 `shadow_block`.  Temporal reprojection (`prev_accu`) comes with a later
 slice and raises `NotImplementedError` until then.
 
+The kernel reads the brick flags as a bitmap (`MegaTables.bitmap`, built
+once by `pack_tables`) through the read-only path.
+
 `KERNEL_LAUNCHES` counts the launches of each kernel.
 """
 
@@ -81,14 +84,16 @@ def reset_launch_counts():
 class MegaTables(NamedTuple):
     """Device tables of one volume.
 
-    The kernel reads `bocc`, `occw`, `matb` and `pal`; the plain version
+    The kernel reads `bitmap`, `occw`, `matb` and `pal`; the plain version
     reads `grid`, `brick_occ` and `pal`.  Brick index
     b = (bz * BY + by) * BX + bx; voxel index inside a brick
     i = z * 64 + y * 8 + x (vv.h:23-38); bit i of the brick's 512-bit
-    occupancy is bit i % 32 of word i // 32.
+    occupancy is bit i % 32 of word i // 32, and brick b's flag is bit
+    b % 32 of bitmap word b // 32.
     """
 
     bocc: torch.Tensor       # (NB,) int32, 1 where the brick holds a solid voxel
+    bitmap: torch.Tensor     # (ceil(NB / 32),) int32 (uint32 bits) brick flags
     occw: torch.Tensor       # (NB, 16) int32 (uint32 bits) occupancy words
     matb: torch.Tensor       # (NB, 512) uint8 material bytes
     grid: torch.Tensor       # (Z, Y, X) uint8 material ids
@@ -119,6 +124,17 @@ def occupancy_words(matb: np.ndarray) -> np.ndarray:
     return bits.view("<u4").astype(np.uint32).view(np.int32)
 
 
+def brick_bitmap(bocc: np.ndarray) -> np.ndarray:
+    """(NB,) brick flags -> (ceil(NB / 32),) int32 (uint32 bits): bit b % 32
+    of word b // 32 is set iff bocc[b] != 0."""
+    flags = np.asarray(bocc).reshape(-1) != 0
+    nw = (flags.size + 31) // 32
+    bits = np.zeros(nw * 32, bool)
+    bits[:flags.size] = flags
+    words = np.packbits(bits.reshape(nw, 32), axis=1, bitorder="little")
+    return words.view("<u4").astype(np.uint32).view(np.int32).reshape(nw)
+
+
 def pack_tables(grid: np.ndarray, palette: np.ndarray, vpu: float,
                 device="cuda") -> MegaTables:
     """Pack a (Z, Y, X) uint8 grid and its palette for the kernel and the
@@ -131,6 +147,7 @@ def pack_tables(grid: np.ndarray, palette: np.ndarray, vpu: float,
     brick_occ = matb.astype(bool).sum(axis=1, dtype=np.int32).reshape(bz, by, bx)
     return MegaTables(
         bocc=torch.tensor(bocc, device=device),
+        bitmap=torch.tensor(brick_bitmap(bocc), device=device),
         occw=torch.tensor(occw, device=device),
         matb=torch.tensor(matb, device=device),
         grid=torch.tensor(grid, device=device),
@@ -366,11 +383,11 @@ def _volume_args(tables: MegaTables, device):
     bx, by, bz = tables.bsize
     gx, gy, gz = tables.gsize
     nb = bx * by * bz
-    _build.check("bocc", tables.bocc, torch.int32, (nb,), device)
+    _build.check("bitmap", tables.bitmap, torch.int32, ((nb + 31) // 32,), device)
     _build.check("occw", tables.occw, torch.int32, (nb, 16), device)
     _build.check("matb", tables.matb, torch.uint8, (nb, 512), device)
     _build.check("pal", tables.pal, torch.float32, (256, 3), device)
-    return [tables.bocc.data_ptr(), tables.occw.data_ptr(),
+    return [tables.bitmap.data_ptr(), tables.occw.data_ptr(),
             tables.matb.data_ptr(), bx, by, bz, gx, gy, gz, tables.vpu,
             dda.MAX_STEPS]
 

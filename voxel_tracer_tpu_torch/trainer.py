@@ -5,9 +5,10 @@ optimize a 128^3 density + albedo grid from 32 posed target images), on
 one device and without a mesh; the multi-device layer waits for the port
 of `parallel/`.  Two backends, named for what runs the march:
 
-- ``"wavefront"`` (the JAX package's ``"xla"``): `ops/diff.render_density`,
-  the lock-step PyTorch march with its replay backward;
-- ``"kernel"`` (the JAX package's ``"pallas"``):
+- ``"wavefront"`` (the JAX package's ``"xla"``, accepted as an alias):
+  `ops/diff.render_density`, the lock-step PyTorch march with its replay
+  backward;
+- ``"kernel"`` (the JAX package's ``"pallas"``, accepted as an alias):
   `ops/cuda/diffint.render_density_mega` on the integrate kernels B6/B7,
   or `render_density_slabs` when ``n_slabs > 1``.  Batches are contiguous
   1024-ray tiles, so datasets should be in `tile_order`.
@@ -33,6 +34,8 @@ from voxel_tracer_tpu_torch.utils.checkpoint import CheckpointManager
 from voxel_tracer_tpu_torch.utils.logging import MetricsLogger
 
 BACKENDS = ("wavefront", "kernel")
+# the JAX package's names for the same backends (its TrainConfig.backend)
+BACKEND_ALIASES = {"xla": "wavefront", "pallas": "kernel"}
 KERNEL_T_EPS = 1e-4     # transmittance floor of the kernel backend
 TILE = 1024             # rays per contiguous batch tile (kernel backend)
 PARAM_NAMES = ("sigma", "albedo")
@@ -50,7 +53,7 @@ class TrainConfig:
     checkpoint_dir: Optional[str] = None
     checkpoint_every: int = 100
     metrics_path: Optional[str] = None     # JSONL metrics stream
-    backend: str = "wavefront"             # or "kernel" (see the module doc)
+    backend: str = "wavefront"             # or "kernel"; "xla" / "pallas" alias them
     # kernel backend: 0 = auto, which is one call for the whole grid on
     # the card (the JAX rule split grids to fit a 16 MB VMEM budget);
     # n > 1 runs the z-slab sequencer with n slabs
@@ -94,9 +97,12 @@ def make_dataset(views, width: int, height: int, vpu: float, grid_size,
 
 class Trainer:
     def __init__(self, cfg: TrainConfig, device="cuda"):
-        if cfg.backend not in BACKENDS:
-            raise ValueError(f"backend must be one of {BACKENDS}, "
-                             f"not {cfg.backend!r}")
+        backend = BACKEND_ALIASES.get(cfg.backend, cfg.backend)
+        if backend not in BACKENDS:
+            raise ValueError(f"backend must be one of {BACKENDS} or their JAX "
+                             f"names {tuple(BACKEND_ALIASES)}, not {cfg.backend!r}")
+        if backend != cfg.backend:     # a JAX name: keep a copy under the port's
+            cfg = dataclasses.replace(cfg, backend=backend)
         self.cfg = cfg
         self.device = torch.device(device)
         self.params = {k: v.requires_grad_() for k, v in

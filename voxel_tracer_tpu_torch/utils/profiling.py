@@ -113,3 +113,38 @@ def profiling_scene_merged():
     from voxel_tracer_tpu_torch.ops.cuda.renderer_fast import bake_aligned_scene
 
     return bake_aligned_scene(profiling_volumes())
+
+
+def budget_scene(length: int = 4096, n_rays: int = 65536, seed: int = 0):
+    """A long sparse volume whose rays run out of the DDA's 256-step budget.
+
+    Grid (Z, Y, X) = (16, 16, length) at vpu 8: a random fill of about one
+    voxel in 10,000, and every third brick along x holding one voxel in an
+    outer corner, so that rays near the centre line (y = z = 8 voxels) walk
+    it without hitting.  ``n_rays`` local rays start before x = 0 and head
+    along +x: half within a voxel of the centre line with y/z slopes under
+    0.004 (they cross from brick to brick near corners, and most spend the
+    budget), a quarter anywhere with the same slopes, a quarter anywhere
+    with slopes under 0.03 (most leave through a side).  Returns (grid,
+    origins (N, 3) float32, directions (N, 3) float32, vpu), made with
+    numpy from ``seed``.
+    """
+    vpu = 8.0
+    rng = np.random.RandomState(seed)
+    g = np.zeros((16, 16, length), np.uint8)
+    fill = rng.rand(*g.shape) < 1e-4
+    g[fill] = rng.randint(1, 256, int(fill.sum()))
+    bx = np.arange(0, length // 8, 3)
+    zs, ys = (np.where(rng.rand(bx.size) < 0.5, 0, 15) for _ in range(2))
+    xs = bx * 8 + np.where(rng.rand(bx.size) < 0.5, 0, 7)
+    g[zs, ys, xs] = rng.randint(1, 256, bx.size)
+
+    n = n_rays
+    yz = rng.uniform(0.25, 15.75, (n, 2))
+    yz[: n // 2] = 8.0 + rng.uniform(-1.0, 1.0, (n // 2, 2))
+    slope = rng.uniform(-0.004, 0.004, (n, 2))
+    slope[3 * n // 4:] *= 7.5
+    o = np.stack([np.full(n, -0.5), yz[:, 0], yz[:, 1]], axis=1) / vpu
+    d = np.stack([np.ones(n), slope[:, 0], slope[:, 1]], axis=1)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return g, o.astype(np.float32), d.astype(np.float32), vpu
