@@ -18,7 +18,9 @@ them:
   coherent kernel (B5), then B5 against its plain version on the frame's
   own primary and shadow ray lists, and an unbaked two-volume scene;
 - the independent DDA: `render_indep` flat and lambert at 1920x1088 on the
-  bench scene (B3) and `trace_rays_indep` on 1 M random rays (B4);
+  bench scene (B3) and `trace_rays_indep` on 1 M random rays (B4), then B3
+  on the bench frame of a 128^3 noise volume (4096 bricks, the most indep
+  takes) and B4 on the long sparse volume's rays, walked end to end;
 - the mega kernels' edges: B2 on the lit frame's own shadow-ray list and
   on a long sparse volume whose rays run out of the 256-step budget
   (`profiling.budget_scene`: 2048 bricks, and 32,800 bricks whose bitmap
@@ -39,8 +41,9 @@ time per call over serialized calls, host work of the wrapper included;
 larger of the bytes the call must move over 3.35 TB/s and its FP32
 operations (counted from this run's data, per-unit counts read off the
 kernel sources) over 67 TFLOP/s, the H100 SXM's published peaks.  The
-mega rows (B1, B2) and the two integrate rows (B6, B7) also carry
-`differential_ms` (per-call time from two call counts); B2 carries its
+mega, integrate, coherent and indep rows also carry `differential_ms`
+(per-call time from two call counts); B3 carries the 128^3 frame's
+numbers (`grid_128`), B4 the long sparse volume's (`budget_rays`); B2 its
 numbers on the lit frame's shadow-ray list (`lit_shadow_rays`), B6 and B7
 `dup_warp_step_share` (share of warp-steps in which
 two of 32 consecutive rays meet one voxel, counted by the plain march) at
@@ -982,8 +985,51 @@ def phase_indep(mv, o_t, d_t):
     torch.cuda.synchronize()
     ray_err = compare_traces("indep rays", tr, p)
     log(f"[indep] work: camera frame {cam_stats}, rays {ray_stats}")
+
+    # the largest volume indep takes (a full 128-word bitmap) and a long
+    # sparse volume whose rays walk hundreds of mostly empty bricks
+    ex = indep_extra_inputs(cam)
+    k = indep.render_indep_tiles(ex["grid_cam_p"], ex["grid_occb"], ex["grid"].tables,
+                                 width=W, height=H)
+    p = indep.render_indep_tiles_plain(ex["grid_cam_p"], ex["grid_occb"], ex["grid"].tables,
+                                       width=W, height=H, stats=ex["grid_stats"])
+    torch.cuda.synchronize()
+    err = max(err, compare_frames("indep 128^3 frame", k, p))
+    unresolved = int((((k[2] >> mega.AUX_RESOLVED_SHIFT) & 1) == 0).sum())
+    k = indep.trace_rays_indep(ex["budget_o"], ex["budget_d"], ex["budget_occb"], ex["budget"])
+    p = indep.trace_rays_indep_plain(ex["budget_o"], ex["budget_d"], ex["budget_occb"],
+                                     ex["budget"], stats=ex["budget_stats"])
+    torch.cuda.synchronize()
+    ray_err = max(ray_err, compare_traces("indep budget rays", k, p))
+    unresolved += int((~k["resolved"]).sum())
+    hits = int((k["t"] < indep.BIG).sum())
+    log(f"[indep] work: 128^3 frame ({ex['grid'].tables.bocc.numel()} bricks) "
+        f"{ex['grid_stats']}, budget rays ({ex['budget'].bocc.numel()} bricks, "
+        f"{int(ex['budget'].bocc.sum())} occupied; {hits} hits) {ex['budget_stats']}; "
+        f"unresolved {unresolved}")
+    require(unresolved == 0 and hits > 0, f"indep extra inputs: {unresolved} unresolved, "
+            f"{hits} budget hits")
     return dict(launches=launches, err_cam=err, err_rays=ray_err, cam_p=cam_p,
-                occb=occb, cam_stats=cam_stats, ray_stats=ray_stats)
+                occb=occb, cam_stats=cam_stats, ray_stats=ray_stats, extra=ex)
+
+
+def indep_extra_inputs(cam):
+    """B3's and B4's inputs beyond the bench scene: the bench frame on a
+    128^3 noise volume (4096 bricks, the most indep takes: a full 128-word
+    bitmap) and 65,536 rays of `profiling.budget_scene` (2048 bricks, most
+    of them empty, walked end to end)."""
+    from voxel_tracer_tpu_torch.models.volume import VoxelVolume
+    from voxel_tracer_tpu_torch.ops.cuda import indep, mega
+    from voxel_tracer_tpu_torch.utils import profiling
+    grid = mega.MegaVolume(VoxelVolume.noise_filled((128, 128, 128), pos=(0, 0, 0), vpu=40.0),
+                           device="cuda")
+    g, o, d, vpu = profiling.budget_scene(length=4096, n_rays=65536)
+    budget = mega.pack_tables(g, np.ones((256, 3), np.float32), vpu, "cuda")
+    return dict(grid=grid, grid_cam_p=mega.mega_camera(grid, cam, SUN, W, H),
+                grid_occb=indep.occb_of(grid.tables), grid_stats={},
+                budget=budget, budget_occb=indep.occb_of(budget),
+                budget_o=torch.from_numpy(o).cuda(), budget_d=torch.from_numpy(d).cuda(),
+                budget_stats={})
 
 
 def phase_new_timing(kr, ind, mv, o_t, d_t):
@@ -1006,19 +1052,43 @@ def phase_new_timing(kr, ind, mv, o_t, d_t):
             coherent_bound(n, pk, kr["stats"][name]))
     tb = mv.tables
     n_px = W * H
-    out["indep_camera"] = time_kernel(
-        "indep camera frame",
-        lambda: indep.render_indep_tiles(ind["cam_p"], ind["occb"], tb, width=W, height=H),
-        lambda: indep.render_indep_tiles_plain(ind["cam_p"], ind["occb"], tb, width=W,
-                                               height=H),
-        (16, 64), "indep_camera_kernel", n_px,
-        indep_bound(n_px, 12, tb, ind["cam_stats"], True))
-    out["indep_rays"] = time_kernel(
-        "indep rays",
-        lambda: indep.trace_rays_indep(o_t, d_t, ind["occb"], tb),
-        lambda: indep.trace_rays_indep_plain(o_t, d_t, ind["occb"], tb),
-        (10, 40), "indep_rays_kernel", N_RAYS,
-        indep_bound(N_RAYS, 32, tb, ind["ray_stats"], False))
+    ex = ind["extra"]
+    n_b = ex["budget_o"].shape[0]
+    for key, tag, fn, plain, counts, span, n, bnd, stats in (
+            ("indep_camera", "indep camera frame",
+             lambda: indep.render_indep_tiles(ind["cam_p"], ind["occb"], tb, width=W, height=H),
+             lambda: indep.render_indep_tiles_plain(ind["cam_p"], ind["occb"], tb, width=W,
+                                                    height=H),
+             (16, 64), "indep_camera_kernel", n_px,
+             indep_bound(n_px, 12, tb, ind["cam_stats"], True), ind["cam_stats"]),
+            ("indep_rays", "indep rays",
+             lambda: indep.trace_rays_indep(o_t, d_t, ind["occb"], tb),
+             lambda: indep.trace_rays_indep_plain(o_t, d_t, ind["occb"], tb),
+             (10, 40), "indep_rays_kernel", N_RAYS,
+             indep_bound(N_RAYS, 32, tb, ind["ray_stats"], False), ind["ray_stats"]),
+            ("indep_camera 128^3", "indep camera 128^3 frame",
+             lambda: indep.render_indep_tiles(ex["grid_cam_p"], ex["grid_occb"],
+                                              ex["grid"].tables, width=W, height=H),
+             lambda: indep.render_indep_tiles_plain(ex["grid_cam_p"], ex["grid_occb"],
+                                                    ex["grid"].tables, width=W, height=H),
+             (8, 32), "indep_camera_kernel", n_px,
+             indep_bound(n_px, 12, ex["grid"].tables, ex["grid_stats"], True),
+             ex["grid_stats"]),
+            ("indep_rays budget", "indep budget rays",
+             lambda: indep.trace_rays_indep(ex["budget_o"], ex["budget_d"], ex["budget_occb"],
+                                            ex["budget"]),
+             lambda: indep.trace_rays_indep_plain(ex["budget_o"], ex["budget_d"],
+                                                  ex["budget_occb"], ex["budget"]),
+             (4, 16), "indep_rays_kernel", n_b,
+             indep_bound(n_b, 32, ex["budget"], ex["budget_stats"], False),
+             ex["budget_stats"])):
+        t = time_kernel(tag, fn, plain, counts, span, n, bnd)
+        steps = stats["brick_steps"] + stats["fine_steps"]
+        per_s = ("not measured" if t["dev_ms"] is None
+                 else f"{steps / t['dev_ms'] * 1e3:.4g}")
+        log(f"[timing] {tag}: {steps} DDA steps ({steps / n:.2f} a ray), {per_s} DDA "
+            f"steps/s (device time)")
+        out[key] = t
 
     scene, cam = kr["scene"], kr["cam"]
 
@@ -1120,18 +1190,23 @@ def main():
             diff_lambert_512=dict(ms=t_dl["ms"], differential_ms=t_dl["diff_ms"],
                                   device_ms=t_dl["dev_ms"], bound_ms=t_dl["bound"][0],
                                   dup_warp_step_share=diffint_res["dup"])))
-    for name, src_name, line, launches_n, err, t in (
+    def row(t):
+        return dict(ms=t["ms"], differential_ms=t["diff_ms"], device_ms=t["dev_ms"],
+                    plain_ms=t["plain_ms"], bound_ms=t["bound"][0], bound_by=t["bound"][1])
+
+    for name, src_name, line, launches_n, err, t, extra in (
             ("coherent", "coherent", "coherent.py:444", kr["launches"], kr["err"],
-             new_times["coherent primary"]),
+             new_times["coherent primary"], {}),
             ("indep_camera", "indep", "indep.py:468", ind["launches"]["indep_camera"],
-             ind["err_cam"], new_times["indep_camera"]),
+             ind["err_cam"], new_times["indep_camera"],
+             {"grid_128": row(new_times["indep_camera 128^3"])}),
             ("indep_rays", "indep", "indep.py:523", ind["launches"]["indep_rays"],
-             ind["err_rays"], new_times["indep_rays"])):
+             ind["err_rays"], new_times["indep_rays"],
+             {"budget_rays": row(new_times["indep_rays budget"])})):
         kernels.append(dict(
             name=name, route="cuda", source=f"voxel_tracer_tpu_torch/csrc/{src_name}.cu",
             replaces=f"voxel_tracer_tpu/ops/pallas/{line}", launches=launches_n,
-            max_abs_err=err, ms=t["ms"], device_ms=t["dev_ms"], plain_ms=t["plain_ms"],
-            bound_ms=t["bound"][0], bound_by=t["bound"][1], library_ms=None))
+            max_abs_err=err, **row(t), library_ms=None, **extra))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

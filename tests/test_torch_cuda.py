@@ -15,7 +15,8 @@ orders that change from run to run, most where many rays update one
 voxel), and exactly 0 in empty bricks and, for d sigma, where sigma is 0.
 Coherent (B5) and indep (B3, B4) kernels: the same float32 program as the
 plain versions, so hits, voxel/material, axes, steps and resolved flags
-equal; t within 1e-5; image within 1 LSB (expf in the sky).
+equal; t within 1e-5 (equal on the indep volumes that fill the bitmap or
+walk hundreds of bricks); image within 1 LSB (expf in the sky).
 """
 
 import numpy as np
@@ -459,6 +460,43 @@ def test_indep_ray_kernel_matches_plain(cuda):
     p = indep.trace_rays_indep_plain(o, d, occb, mv.tables)
     _assert_trace_equal(k, p)
     assert bool(k["resolved"].all()) and bool((k["t"] < indep.BIG).any())
+
+
+@pytest.mark.parametrize("volume", ["noise_128", "long_sparse"])
+def test_indep_kernels_on_full_bitmap_and_long_walks(cuda, volume):
+    """B3 and B4 on the largest volume indep takes (128^3 noise: 4096
+    bricks, a full 128-word bitmap) and on `profiling.budget_scene`'s
+    (16, 16, 4096) volume, whose rays walk hundreds of mostly empty bricks
+    end to end: t and aux equal, image within 1 LSB, every ray resolved."""
+    if volume == "noise_128":
+        vol = VoxelVolume.noise_filled((128, 128, 128), vpu=40.0)
+        cam = Camera.create((2.0, 1.4, -2.4), (0.0, 0.0, 0.0), 2.0)
+        o, d = _local_rays(cuda, 8192, -1.0, 4.2, 4)
+    else:
+        g, o, d, vpu = profiling.budget_scene(length=4096, n_rays=8192)
+        vol = VoxelVolume(g, pos=(0.0, 0.0, 0.0), vpu=vpu)
+        cam = Camera.create((-258.0, 0.3, 0.2), (0.0, 0.0, 0.0), 2.0)
+        o, d = torch.from_numpy(o).to(cuda), torch.from_numpy(d).to(cuda)
+    mv = mega.MegaVolume(vol, cuda)
+    occb = indep.occb_of(mv.tables)
+    assert mv.tables.bocc.numel() == (4096 if volume == "noise_128" else 2048)
+    cam_p = mega.mega_camera(mv, cam, (-0.62, 0.47, -0.63), 96, 48)
+    kw = dict(width=96, height=48, shading="lambert")
+    before = dict(indep.KERNEL_LAUNCHES)
+    rk, tk, ak = indep.render_indep_tiles(cam_p, occb, mv.tables, **kw)
+    k = indep.trace_rays_indep(o, d, occb, mv.tables)
+    assert indep.KERNEL_LAUNCHES == {n: c + 1 for n, c in before.items()}
+    rp, tp, ap = indep.render_indep_tiles_plain(cam_p, occb, mv.tables, **kw)
+    p = indep.trace_rays_indep_plain(o, d, occb, mv.tables)
+    assert torch.equal(ak, ap) and torch.equal(tk, tp)
+    assert int((mega._unpack_rgb8(rk) - mega._unpack_rgb8(rp)).abs().max()) <= 1
+    assert bool((((ak >> mega.AUX_RESOLVED_SHIFT) & 1) == 1).all())
+    _assert_trace_equal(k, p)
+    assert torch.equal(k["t"], p["t"])
+    assert bool(k["resolved"].all()) and bool((k["t"] < indep.BIG).any())
+    assert bool((tk < indep.BIG).any())
+    if volume == "long_sparse":
+        assert float(k["steps"].float().mean()) > 256     # walks, not budgets
 
 
 def test_indep_kernel_rejects_bad_input(cuda):

@@ -15,23 +15,43 @@
 // it has vote rounds leaves rays unresolved.  Here one thread walks one ray
 // (indep.py:140-169, :302-328) and runs the fine pass of indep.py:171-273
 // on each occupied brick it visits; there are no rounds to overflow, so a
-// ray is unresolved only if its walk ran out of steps without a hit or an
-// exit, which a well-formed ray cannot do.  The float program is indep's,
-// not B1's: enter = tmin + bft / bpu, t = enter + h_ft / vpu, steps = brick
-// steps + fine steps.
+// ray is unresolved only if a fine pass ran FINE_ITERS steps or the walk
+// ran nb_x + nb_y + nb_z + 2 brick iterations without a hit or an exit,
+// which a well-formed ray cannot do.
 //
-// Bound: per-ray dependent loads (one bitmap word per brick step from
-// shared memory, where each block keeps the 512-byte bitmap; one
-// occupancy word per fine step and one material byte per hit through the
-// read-only path, L2-resident for the <= 4096-brick volumes this kernel
-// takes) and the divergence of loop trip counts inside a warp.
-// Neighbouring rays (16x16-pixel blocks for camera rays) cross the same
-// bricks.  Speed is left to later work.
+// Loop shape: an outer brick walk and, inside each occupied brick, a fine
+// walk.  Each step's axis comes from the reference's comparisons and is
+// committed with selects, so the whole DDA state stays in scalar registers
+// (nothing is indexed by a run-time axis; ptxas reports a 0-byte stack
+// frame).  The next cell depends only on the crossing t's, so each level
+// requests its next word ahead: the fine walk the next cell's occupancy
+// word before it tests the current cell, the brick walk, as it steps into
+// a brick, the bitmap word of the brick after it; the float updates commit
+// after the test, unchanged.  Those loads stay inside the brick's 16 words
+// or the 128-word bitmap even where the ray is about to leave, so they
+// need no branch.  Each block stages the bitmap (512 bytes, bit b & 31 of
+// word b >> 5) in shared memory; occupancy words and material bytes are
+// read through the read-only path.  tools/torch_indep_trials.py keeps the
+// alternatives it measured (branches, one loop over both levels, no
+// prefetch, the bitmap through __ldg, the occupancy words bulk-copied into
+// shared memory, persistent rays, other block shapes).
 //
-// Rounding: compiled with --fmad=false; fmaf where XLA's CPU backend
-// contracts the JAX kernel under jit (the brick walk's entry point, enter,
-// the fine entry point, t); the plain PyTorch version (ops/cuda/indep.py)
-// does the same float32 operations in the same order.
+// Bound: per-ray dependent loads (one bitmap word per brick step, one
+// occupancy word per fine step, one material byte per hit; L1- or
+// L2-resident for the <= 4096-brick volumes this kernel takes), the issue
+// rate of the steps, and the divergence of loop trip counts inside a warp.
+// Camera blocks are 8x32 pixels (a warp covers 8x4 pixels, whose rays
+// cross the same bricks); ray-list blocks are 128 threads, which spread a
+// list whose walk lengths follow its order over more SMs than 256-thread
+// blocks do.  Launch bounds of (threads, 1) leave ptxas its registers.
+//
+// Rounding: the float program is indep's, not B1's: enter = tmin + bft /
+// bpu, t = enter + ft / vpu, steps = brick steps + fine cells tested (the
+// entry cell's test counts).  Compiled with --fmad=false; fmaf where XLA's
+// CPU backend contracts the JAX kernel under jit (the brick walk's entry
+// point, enter, the fine entry point, t); the plain PyTorch version
+// (ops/cuda/indep.py:_walk) does the same float32 operations in the same
+// order.
 //
 // Launchers are extern "C", run on the caller's stream, allocate nothing,
 // and return cudaGetLastError().
@@ -42,13 +62,13 @@
 namespace {
 
 using walk::BIG;
+using walk::FINE_ITERS;
 using walk::Geo;
 
-constexpr int BITMAP_WORDS = 128;   // <= 4096 bricks (indep.py:53)
-constexpr int RAY_THREADS = 256;
+constexpr int RAY_THREADS = 128;
 
 struct Volume {
-  const int32_t* occb;    // (128,) brick bitmap: bit b & 31 of word b >> 5
+  const uint32_t* bits;   // (128,) brick bitmap: bit b & 31 of word b >> 5
   const uint32_t* occw;   // (NB, 16) occupancy bits, bit = z*64 + y*8 + x
   const uint8_t* matb;    // (NB, 512) material bytes, same index
   Geo g;
@@ -62,14 +82,29 @@ struct Hit {
   int resolved;
 };
 
-__device__ __forceinline__ void load_bitmap(uint32_t* sbits, const int32_t* occb,
-                                            int tid, int nthreads) {
-  for (int k = tid; k < BITMAP_WORDS; k += nthreads)
-    sbits[k] = (uint32_t)__ldg(&occb[k]);
+// First cell and crossing t of one axis at a level's entry point e (cells
+// in [0, hi]); pos: the step sign is +1.  The brick level clamps in float
+// (indep.py:146-152), the fine level in int (:190-198).
+__device__ __forceinline__ void brick_setup(float e, bool pos, float rdir, int hi,
+                                            int& cell, float& tm) {
+  cell = (int)fminf(fmaxf(floorf(e), 0.0f), (float)hi);
+  float v = (((float)cell - e) + (pos ? 1.0f : 0.0f)) * rdir;
+  if (isnan(v)) v = BIG;
+  tm = fminf(v, BIG);
 }
 
-__device__ Hit indep_ray(const float o[3], const float d[3],
-                         const uint32_t* sbits, const Volume& v) {
+__device__ __forceinline__ void fine_setup(float e, bool pos, float rdir, int& cell,
+                                           float& tm) {
+  cell = min(max((int)floorf(e), 0), 7);
+  float v = (((float)cell - e) + (pos ? 1.0f : 0.0f)) * rdir;
+  if (isnan(v)) v = BIG;
+  tm = fminf(v, BIG);
+}
+
+// First hit of one ray (indep.py:106-328 for one lane).
+__device__ __forceinline__ Hit indep_ray(const float o[3], const float d[3],
+                                         const uint32_t* __restrict__ bits,
+                                         const Volume& v) {
   const Geo& g = v.g;
   float rd[3], tmin, tmax;
   int entry_axis;
@@ -77,75 +112,126 @@ __device__ Hit indep_ray(const float o[3], const float d[3],
   Hit h = {BIG, 0, entry_axis * 2, 0, 1};
   if (!valid) return h;
 
-  int sgn[3], cb[3];
-  float dl[3], bt[3];
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    sgn[a] = signbit(d[a]) ? -1 : 1;
-    dl[a] = fminf(fabsf(rd[a]), BIG);
-    // brick-level DDA init at the entry point, in brick units
-    const float fb = fmaf(d[a], tmin, o[a]) * g.bpu;
-    cb[a] = (int)fminf(fmaxf(floorf(fb), 0.0f), (float)(g.nb[a] - 1));
-    float t0 = (((float)cb[a] - fb) + (sgn[a] > 0 ? 1.0f : 0.0f)) * rd[a];
-    if (isnan(t0)) t0 = BIG;
-    bt[a] = fminf(t0, BIG);
-  }
+  // ---- per-axis constants and the brick walk's start, in brick units ----
+  const bool px = !signbit(d[0]), py = !signbit(d[1]), pz = !signbit(d[2]);
+  const int sx = px ? 1 : -1, sy = py ? 1 : -1, sz = pz ? 1 : -1;
+  const float dlx = fminf(fabsf(rd[0]), BIG), dly = fminf(fabsf(rd[1]), BIG),
+              dlz = fminf(fabsf(rd[2]), BIG);
+  const int nbx = g.nb[0], nby = g.nb[1], nbz = g.nb[2];
+  int bcx, bcy, bcz;
+  float btx, bty, btz;
+  brick_setup(fmaf(d[0], tmin, o[0]) * g.bpu, px, rd[0], nbx - 1, bcx, btx);
+  brick_setup(fmaf(d[1], tmin, o[1]) * g.bpu, py, rd[1], nby - 1, bcy, bty);
+  brick_setup(fmaf(d[2], tmin, o[2]) * g.bpu, pz, rd[2], nbz - 1, bcz, btz);
+
   float bft = 0.0f;       // brick-unit time of the current brick's entry
   int bax = entry_axis;   // axis of that entry step
-  const int max_outer = g.nb[0] + g.nb[1] + g.nb[2] + 2;
+  int steps = 0;
+  // the brick after the current one depends only on the crossing t's
+  // (indep.py:302-328, reference comparison order): its bitmap word is
+  // requested a whole iteration before its test.  Past the grid's edge the
+  // index is meaningless but the masked load stays inside the bitmap, and
+  // the step that would enter that brick ends the walk instead.
+  auto next_brick = [&]() {
+    const bool ux = (btx < bty) && (btx < btz);
+    const bool uy = !(btx < bty) && (bty < btz);
+    const int nx = ux ? bcx + sx : bcx, ny = uy ? bcy + sy : bcy,
+              nz = (!ux && !uy) ? bcz + sz : bcz;
+    return (nz * nby + ny) * nbx + nx;
+  };
+  int b = (bcz * nby + bcy) * nbx + bcx;
+  uint32_t bword = bits[b >> 5];
+  int nbi = next_brick();
+  uint32_t nbword = bits[((unsigned)nbi >> 5) & 127u];
+  const int max_outer = nbx + nby + nbz + 2;
   for (int it = 0; it < max_outer; ++it) {
-    const int b = (cb[2] * g.nb[1] + cb[1]) * g.nb[0] + cb[0];
-    if ((sbits[b >> 5] >> (b & 31)) & 1u) {
+    if ((bword >> (b & 31)) & 1u) {
+      // fine pass of the occupied brick (indep.py:171-273)
       const float enter = fmaf(bft, g.rbpu, tmin);
-      const float b0[3] = {(float)cb[0] * g.rbpu, (float)cb[1] * g.rbpu,
-                           (float)cb[2] * g.rbpu};
-      const int ax0 = (bft <= 1e-12f) ? entry_axis : bax;
-      int cell[3], ax;
-      float ft;
-      const walk::Fine f = walk::fine_brick(v.occw + (size_t)b * 16, o, d, rd, sgn,
-                                            dl, b0, enter, ax0, g.vpu, h.steps,
-                                            cell, ft, ax);
-      if (f == walk::FINE_CAP) break;
-      if (f == walk::FINE_HIT) {
-        const int bit = cell[2] * 64 + cell[1] * 8 + cell[0];
-        h.t = fmaf(ft, g.rvpu, enter);
-        h.mat = (int)__ldg(&v.matb[(size_t)b * 512 + bit]);
-        h.ax = ax * 2 + (walk::pick3(sgn, ax) > 0 ? 1 : 0);
-        return h;
+      int fx, fy, fz;
+      float fmx, fmy, fmz;
+      fine_setup((fmaf(d[0], enter, o[0]) - (float)bcx * g.rbpu) * g.vpu, px, rd[0], fx, fmx);
+      fine_setup((fmaf(d[1], enter, o[1]) - (float)bcy * g.rbpu) * g.vpu, py, rd[1], fy, fmy);
+      fine_setup((fmaf(d[2], enter, o[2]) - (float)bcz * g.rbpu) * g.vpu, pz, rd[2], fz, fmz);
+      int fax = (bft <= 1e-12f) ? entry_axis : bax;   // the entry cell's axis
+      const uint32_t* __restrict__ w = v.occw + (size_t)b * 16;
+      float ft = 0.0f;
+      int bit = (fz * 8 + fy) * 8 + fx;
+      uint32_t word = __ldg(&w[bit >> 5]);
+      for (int fi = 1;; ++fi) {
+        // the next cell depends only on the crossing t's: choose it and
+        // request its occupancy word before this cell's test (a word of
+        // this brick even where the ray leaves it: no branch)
+        const bool fux = (fmx < fmy) && (fmx < fmz);
+        const bool fuy = !(fmx < fmy) && (fmy < fmz);
+        const int mx = fux ? fx + sx : fx, my = fuy ? fy + sy : fy,
+                  mz = (!fux && !fuy) ? fz + sz : fz;
+        const bool out = ((unsigned)mx | (unsigned)my | (unsigned)mz) >= 8u;
+        const int mbit = (mz * 8 + my) * 8 + mx;
+        const uint32_t mword = __ldg(&w[((unsigned)mbit >> 5) & 15u]);
+        ++steps;                                    // this cell's test
+        if ((word >> (bit & 31)) & 1u) {
+          const bool hpos = fax == 0 ? px : (fax == 1 ? py : pz);
+          h.t = fmaf(ft, g.rvpu, enter);
+          h.mat = (int)__ldg(&v.matb[(size_t)b * 512 + bit]);
+          h.ax = fax * 2 + (hpos ? 1 : 0);
+          h.steps = steps;
+          return h;
+        }
+        if (out) break;                             // leave for the brick step
+        ft = fux ? fmx : (fuy ? fmy : fmz);
+        fmx = fux ? fmx + dlx : fmx;
+        fmy = fuy ? fmy + dly : fmy;
+        fmz = (!fux && !fuy) ? fmz + dlz : fmz;
+        fax = fux ? 0 : (fuy ? 1 : 2);
+        fx = mx; fy = my; fz = mz; bit = mbit; word = mword;
+        if (fi >= FINE_ITERS) {                     // fine cap: unresolved
+          h.steps = steps;
+          h.resolved = 0;
+          return h;
+        }
       }
     }
     // one brick step (indep.py:302-328)
-    const int a = walk::aw_axis(bt);
-    int moved;
-    if (a == 0) {
-      cb[0] += sgn[0]; bft = bt[0]; bt[0] = bt[0] + dl[0]; moved = cb[0];
-    } else if (a == 1) {
-      cb[1] += sgn[1]; bft = bt[1]; bt[1] = bt[1] + dl[1]; moved = cb[1];
-    } else {
-      cb[2] += sgn[2]; bft = bt[2]; bt[2] = bt[2] + dl[2]; moved = cb[2];
+    const bool ux = (btx < bty) && (btx < btz);
+    const bool uy = !(btx < bty) && (bty < btz);
+    const bool uz = !ux && !uy;
+    bcx = ux ? bcx + sx : bcx;
+    bcy = uy ? bcy + sy : bcy;
+    bcz = uz ? bcz + sz : bcz;
+    bft = ux ? btx : (uy ? bty : btz);
+    btx = ux ? btx + dlx : btx;
+    bty = uy ? bty + dly : bty;
+    btz = uz ? btz + dlz : btz;
+    bax = ux ? 0 : (uy ? 1 : 2);
+    const bool leaves = ((unsigned)bcx >= (unsigned)nbx) | ((unsigned)bcy >= (unsigned)nby) |
+                        ((unsigned)bcz >= (unsigned)nbz);
+    ++steps;
+    if (leaves) {                                   // left the grid: a miss
+      h.steps = steps;
+      return h;
     }
-    bax = a;
-    ++h.steps;
-    if (moved < 0 || moved >= g.nb[a]) return h;
+    b = nbi;
+    bword = nbword;
+    nbi = next_brick();
+    nbword = bits[((unsigned)nbi >> 5) & 127u];
   }
-  h.resolved = 0;   // a fine pass or the walk ran out of steps
+  h.steps = steps;   // the walk ran out of iterations: unresolved
+  h.resolved = 0;
   return h;
 }
 
-// Camera frame (B3): one thread per pixel, 16x16 pixel blocks, image order.
-__global__ void indep_camera_kernel(const float* __restrict__ cam,
-                                    const float* __restrict__ pal, Volume v,
-                                    int width, int height, int shading,
-                                    int sky_mode, float ambient,
-                                    int32_t* __restrict__ rgba_out,
-                                    float* __restrict__ t_out,
-                                    int32_t* __restrict__ aux_out) {
+// Camera frame (B3): one thread per pixel, 8x32 pixel blocks, image order.
+__global__ void __launch_bounds__(256, 1)
+indep_camera_kernel(const float* __restrict__ cam, const float* __restrict__ pal,
+                    Volume v, int width, int height, int shading, int sky_mode,
+                    float ambient, int32_t* __restrict__ rgba_out,
+                    float* __restrict__ t_out, int32_t* __restrict__ aux_out) {
   __shared__ float spal[256 * 3];
-  __shared__ uint32_t sbits[BITMAP_WORDS];
+  __shared__ uint32_t sbits[128];
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int nthreads = blockDim.x * blockDim.y;
-  for (int i = tid; i < 256 * 3; i += nthreads) spal[i] = __ldg(&pal[i]);
-  load_bitmap(sbits, v.occb, tid, nthreads);
+  for (int i = tid; i < 256 * 3; i += blockDim.x * blockDim.y) spal[i] = __ldg(&pal[i]);
+  for (int k = tid; k < 128; k += blockDim.x * blockDim.y) sbits[k] = __ldg(&v.bits[k]);
   __syncthreads();
 
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
@@ -165,12 +251,12 @@ __global__ void indep_camera_kernel(const float* __restrict__ cam,
 
 // Ray list (B4): one thread per ray, (N, 3) float32 origins and directions
 // in the volume's local frame; trace outputs.
-__global__ void __launch_bounds__(RAY_THREADS)
+__global__ void __launch_bounds__(RAY_THREADS, 1)
 indep_rays_kernel(const float* __restrict__ orig, const float* __restrict__ dirs,
                   int n, Volume v, float* __restrict__ t_out,
                   int32_t* __restrict__ aux_out) {
-  __shared__ uint32_t sbits[BITMAP_WORDS];
-  load_bitmap(sbits, v.occb, threadIdx.x, blockDim.x);
+  __shared__ uint32_t sbits[128];
+  for (int k = threadIdx.x; k < 128; k += blockDim.x) sbits[k] = __ldg(&v.bits[k]);
   __syncthreads();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
@@ -185,7 +271,7 @@ indep_rays_kernel(const float* __restrict__ orig, const float* __restrict__ dirs
 Volume make_volume(const int32_t* occb, const uint32_t* occw, const uint8_t* matb,
                    const int* nb, const float* geo) {
   Volume v;
-  v.occb = occb;
+  v.bits = reinterpret_cast<const uint32_t*>(occb);
   v.occw = occw;
   v.matb = matb;
   v.g = walk::make_geo(nb, geo);
@@ -203,8 +289,8 @@ extern "C" int vt_indep_camera(const float* cam, const float* pal,
                                int32_t* rgba, float* t, int32_t* aux,
                                cudaStream_t stream) {
   const Volume v = make_volume(occb, occw, matb, nb, geo);
-  const dim3 block(16, 16);
-  const dim3 grid((width + 15) / 16, (height + 15) / 16);
+  const dim3 block(8, 32);
+  const dim3 grid((width + block.x - 1) / block.x, (height + block.y - 1) / block.y);
   indep_camera_kernel<<<grid, block, 0, stream>>>(cam, pal, v, width, height,
                                                   shading, sky_mode, ambient,
                                                   rgba, t, aux);
