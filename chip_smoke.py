@@ -24,7 +24,16 @@ them:
 - the mega kernels' edges: B2 on the lit frame's own shadow-ray list and
   on a long sparse volume whose rays run out of the 256-step budget
   (`profiling.budget_scene`: 2048 bricks, and 32,800 bricks whose bitmap
-  outgrows 4 KB), B1 on a 256^3 grid.
+  outgrows 4 KB), B1 on a 256^3 grid, the lit frame with temporal
+  reprojection (`prev_accu`);
+- the full-material Whitted frame: `render_whitted_mega` at 1280x768
+  (bench_suite.py's full_whitted_720p configuration: 3 bounces, 2 glass
+  reflections, 2 shadow rounds, compacted) on a procedural glass box,
+  mirror and drones scene, every traversal on B1 / B2; the same frame
+  traced by the plain versions at 1280x768 and at 320x192, equal field
+  for field; the wavefront `Renderer` at 320x192; four accumulated frames;
+  frame time compacted and not, device busy share, kernels and B2
+  launches a frame.
 
 Each main path runs with the launch counts set to 0 just before it and
 read just after.  It prints one line per phase, then the card's name and
@@ -44,7 +53,10 @@ kernel sources) over 67 TFLOP/s, the H100 SXM's published peaks.  The
 mega, integrate, coherent and indep rows also carry `differential_ms`
 (per-call time from two call counts); B3 carries the 128^3 frame's
 numbers (`grid_128`), B4 the long sparse volume's (`budget_rays`); B2 its
-numbers on the lit frame's shadow-ray list (`lit_shadow_rays`), B6 and B7
+numbers on the lit frame's shadow-ray list (`lit_shadow_rays`) and in the
+Whitted frame (`whitted`: B2 and B1 launches of the main path's frame,
+B2's device ms per launch, the frame's ms compacted and not, device busy
+ms and idle share), B6 and B7
 `dup_warp_step_share` (share of warp-steps in which
 two of 32 consecutive rays meet one voxel, counted by the plain march) at
 training shapes, and the same numbers on diff_lambert_512.  Serialized
@@ -1109,6 +1121,303 @@ def phase_new_timing(kr, ind, mv, o_t, d_t):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Fourth slice: the full-material Whitted frame on B1 / B2
+# ---------------------------------------------------------------------------
+
+WH_W, WH_H = 1280, 768          # bench_suite.py full_whitted_720p
+WH_SMALL_W, WH_SMALL_H = 320, 192
+WH_BOUNCES, WH_GLASS_REFL, WH_SHADOW_ROUNDS = 3, 2, 2
+# orbit angle: off the grid's boundary planes (at 0 the camera sits in the
+# plane of the grid's far z face, where grazing rays split between float
+# pipelines), looking through the grid's far corner into the scene
+WH_THETA = 0.05
+# the kernel frame vs the port's wavefront Renderer: the CPU tests' pinned
+# budgets (tests/test_torch_renderer.py), as shares of the frame's pixels
+WH_COLOR_MISMATCH_SHARE = 130 / 3072    # pixels over 5 % relative error
+WH_MEAN_REL_ERR = 0.015
+WH_DEPTH_ATOL = 5e-3
+WH_HIT_COUNT_SHARE = 4 / 3072
+
+
+def whitted_scene():
+    """A procedural stand-in for bench_suite.py:381-437's glass-box and
+    drones scene: a 128^3 grid at vpu 20 (a diffuse floor, id 30; a hollow
+    glass box with 2-voxel walls, id 4, around a diffuse pillar, id 40; a
+    mirror plate, id 12) and four 16^3 drone-sized diffuse solids at
+    pos (i, 2.0, 0), baked into one volume; a procedural sky and one sphere
+    light.  Returns (merged volume, host Scene)."""
+    from voxel_tracer_tpu_torch.models.scene import Scene
+    from voxel_tracer_tpu_torch.models.skydome import SkyDome
+    from voxel_tracer_tpu_torch.models.volume import VoxelVolume
+    from voxel_tracer_tpu_torch.ops.cuda.renderer_fast import bake_aligned_scene
+    n = 128
+    g = np.zeros((n, n, n), np.uint8)                  # (z, y, x), y up
+    g[:, 48:56, :] = 30                                # floor slab
+    g[30:70, 56:96, 30:70] = 4                         # glass box
+    g[32:68, 56:94, 32:68] = 0                         # hollow, open to the floor
+    g[44:56, 56:84, 44:56] = 40                        # pillar inside
+    g[20:70, 56:110, 90:94] = 12                       # mirror plate
+    rng = np.random.RandomState(0)
+    pal = (rng.rand(256, 3) * 0.8 + 0.1).astype(np.float32)
+    # grid corner at (-2.4, -3.2, -4.9): the drones land at grid y 96..112
+    base = VoxelVolume(g, palette=pal, pos=(0.8, 0.0, -1.7), vpu=20.0)
+    z, y, x = np.meshgrid(*[np.arange(16)] * 3, indexing="ij")
+    body = ((x - 7.5) ** 2 / 64 + (y - 7.5) ** 2 / 16 + (z - 7.5) ** 2 / 64) <= 1.0
+    drones = [VoxelVolume(np.where(body, 17 + 8 * i, 0).astype(np.uint8), palette=pal,
+                          pos=(float(i), 2.0, 0.0), vpu=20.0) for i in range(4)]
+    merged = bake_aligned_scene([base] + drones)
+    scene = Scene(volumes=[merged], skydome=SkyDome.procedural(64, 32))
+    scene.add_light((2.0, 3.5, -1.5), 0.15, (1.0, 0.9, 0.8), 40.0)
+    return merged, scene
+
+
+def whitted_camera(merged, theta, width, height):
+    """bench_suite.py:452-457's orbit camera."""
+    from voxel_tracer_tpu_torch.models.camera import Camera
+    c0 = np.asarray(merged.pos) + np.asarray(merged.size) * 0.5
+    pos = (c0[0] + 3.2 * math.cos(theta * 10.0), c0[1] + 1.2,
+           c0[2] + 3.2 * math.sin(theta * 10.0))
+    return Camera.create(pos, tuple(c0), width / height)
+
+
+def whitted_config(width, height, **kw):
+    from voxel_tracer_tpu_torch.renderer import RenderConfig
+    return RenderConfig(width=width, height=height, shading="full",
+                        max_bounces=WH_BOUNCES, glass_reflections=WH_GLASS_REFL,
+                        **{"compact": True, **kw})
+
+
+def bench_suite_whitted_launches(n_glass):
+    """bench_suite.py:446-450: trace launches a frame (1 camera + ray lists)
+    when every stage runs."""
+    glass_sub = WH_GLASS_REFL * n_glass + (WH_GLASS_REFL - 1) * (1 + 2 * n_glass)
+    return (1 + WH_BOUNCES * 3 * WH_SHADOW_ROUNDS
+            + (WH_BOUNCES - 1) * ((1 + 2 * n_glass) + glass_sub))
+
+
+def check_whitted_frame(tag, out, width, height):
+    """Shapes, finite values, a hit fraction strictly inside (0, 1), unit
+    normals on hits, glass and mirror rows in view."""
+    hit = out["depth"] < 1e30
+    frac = float(hit.float().mean())
+    require(out["image"].shape == (height, width, 3), f"{tag}: image shape")
+    for f in ("image", "color", "irradiance", "albedo"):
+        require(bool(torch.isfinite(out[f]).all()), f"{tag}: non-finite {f}")
+    require(0.05 < frac < 0.99, f"{tag}: hit fraction {frac}")
+    n = out["normal"][hit]
+    require(bool(torch.allclose(n.norm(dim=-1), torch.ones_like(n[:, 0]), atol=1e-6)),
+            f"{tag}: normals are not unit length")
+    rows = torch.div(out["material"][hit] - 1, 8, rounding_mode="floor")
+    shares = {r: float((rows == k).float().mean()) for r, k in
+              (("glass", 0), ("mirror", 1), ("diffuse", 2))}
+    shares["diffuse"] = 1.0 - shares["glass"] - shares["mirror"]
+    require(shares["glass"] > 0 and shares["mirror"] > 0,
+            f"{tag}: glass and mirror not both in view: {shares}")
+    return frac, shares
+
+
+def compare_whitted(tag, k, p):
+    """Kernel-traced vs plain-traced frame: every field equal."""
+    diffs = {f: float((k[f].double() - p[f].double()).abs().max()) for f in k}
+    log(f"[{tag}] kernel vs plain, max |d| per field: {diffs}")
+    require(all(v == 0.0 for v in diffs.values()), f"{tag}: fields differ: {diffs}")
+    return max(diffs.values())
+
+
+def compare_whitted_wavefront(tag, k, r):
+    """Kernel frame vs the wavefront Renderer's frame, to the CPU tests'
+    budgets scaled to the frame's pixels."""
+    kc, rc = k["color"].reshape(-1, 3), r["color"].reshape(-1, 3)
+    rel = (kc - rc).abs().amax(-1) / torch.clamp(rc.abs().amax(-1), min=1.0)
+    n = rel.numel()
+    mism = int((rel > 0.05).sum())
+    kt, rt = k["depth"].reshape(-1), r["depth"].reshape(-1)
+    both = (kt < 1e30) & (rt < 1e30)
+    dt = float((kt[both] - rt[both]).abs().max())
+    dhit = abs(int((kt < 1e30).sum()) - int((rt < 1e30).sum()))
+    mat_eq = float((k["material"].reshape(-1)[both] == r["material"].reshape(-1)[both])
+                   .float().mean())
+    log(f"[{tag}] kernel frame vs wavefront Renderer: {mism} of {n} pixels over 5 % "
+        f"(budget {WH_COLOR_MISMATCH_SHARE * n:.0f}), mean relative error "
+        f"{float(rel.mean()):.5f} (budget {WH_MEAN_REL_ERR}), depth max |d| {dt:.3g}, "
+        f"hit counts differ by {dhit} (budget {WH_HIT_COUNT_SHARE * n:.0f}), "
+        f"material equal on {mat_eq:.5f} of common hits")
+    require(mism <= WH_COLOR_MISMATCH_SHARE * n, f"{tag}: {mism} colour mismatches")
+    require(float(rel.mean()) < WH_MEAN_REL_ERR, f"{tag}: mean relative error")
+    require(dt < WH_DEPTH_ATOL, f"{tag}: depth differs by {dt}")
+    require(dhit <= WH_HIT_COUNT_SHARE * n, f"{tag}: hit counts differ by {dhit}")
+
+
+def phase_whitted(device="cuda", size=(WH_W, WH_H), small=(WH_SMALL_W, WH_SMALL_H),
+                  counts=(4, 12)):
+    """[whitted] The full-material frame: render_whitted_mega on B1 / B2 at
+    1280x768 (launch counts at 0 just before, read just after); the same
+    frame traced by the plain versions at 320x192, equal field for field;
+    the port's wavefront Renderer on that frame; four accumulated frames;
+    frame time and device busy share."""
+    from voxel_tracer_tpu_torch.ops.cuda import mega
+    from voxel_tracer_tpu_torch.ops.cuda.whitted import (MegaIntersector, WhittedMegaRenderer,
+                                                         render_whitted_mega)
+    from voxel_tracer_tpu_torch.renderer import Renderer
+    t0 = time.perf_counter()
+    merged, scene = whitted_scene()
+    sd = scene.data(device)
+    mv = mega.MegaVolume(merged, device)
+    isect = MegaIntersector(mv, shadow_rounds=WH_SHADOW_ROUNDS, compact=True)
+    w, h = size
+    cfg = whitted_config(w, h)
+    cam = whitted_camera(merged, WH_THETA, w, h)
+    log(f"[whitted] scene: {merged.grid.shape[::-1]} grid, glass ids {isect.glass_ids}, "
+        f"{sd.lights.origin.shape[0]} sphere light; built in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    mega.reset_launch_counts()
+    out = render_whitted_mega(isect, sd, cam, w, h, 0, config=cfg)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    launches = dict(mega.KERNEL_LAUNCHES)
+    expected = bench_suite_whitted_launches(len(isect.glass_ids))
+    frac, shares = check_whitted_frame("whitted", out, w, h)
+    log(f"[whitted] render_whitted_mega at {w}x{h}, shading full, {WH_BOUNCES} bounces, "
+        f"{WH_GLASS_REFL} glass reflections, {WH_SHADOW_ROUNDS} shadow rounds, compact: "
+        f"launches {launches} (bench_suite's formula: {expected} a frame, "
+        f"{expected - 1} of them ray lists); hit fraction {frac:.4f}, rows of hits {shares}")
+    if device != "cpu":
+        for name, k in launches.items():
+            require(k > 0, f"kernel {name} was not launched on the Whitted path")
+    # the same frame traced by the plain versions: every B1 / B2 input of
+    # the main path (983,040 primary rays, the full and inverted-table ray
+    # lists) held against its plain version through the frame's fields
+    plain = MegaIntersector(mv, shadow_rounds=WH_SHADOW_ROUNDS, compact=True,
+                            trace_fn=mega.trace_rays_plain,
+                            tiles_fn=mega.render_mega_tiles_plain)
+    t0 = time.perf_counter()
+    err = compare_whitted(f"whitted {w}x{h}",
+                          out, render_whitted_mega(plain, sd, cam, w, h, 0, config=cfg))
+    log(f"[whitted] plain-traced {w}x{h} frame in {time.perf_counter() - t0:.1f} s")
+
+    sw, sh = small
+    s_cfg = whitted_config(sw, sh)
+    s_cam = whitted_camera(merged, WH_THETA, sw, sh)
+    k = render_whitted_mega(isect, sd, s_cam, sw, sh, 0, config=s_cfg)
+    p = render_whitted_mega(plain, sd, s_cam, sw, sh, 0, config=s_cfg)
+    err = max(err, compare_whitted(f"whitted {sw}x{sh}", k, p))
+    check_whitted_frame(f"whitted {sw}x{sh}", k, sw, sh)
+    # the wavefront DDA walks stochastic shadows to the end; the kernel
+    # frame does with exact_fallback (shadow walks past shadow_rounds
+    # voxels continue on the DDA's shadow mode)
+    exact = MegaIntersector(mv, shadow_rounds=WH_SHADOW_ROUNDS, compact=True,
+                            exact_fallback=True)
+    k_exact = render_whitted_mega(exact, sd, s_cam, sw, sh, 0, config=s_cfg)
+    r = Renderer(s_cfg, device=device).render(sd, s_cam, frame=0)
+    compare_whitted_wavefront(f"whitted {sw}x{sh}", k_exact, r)
+
+    acc = WhittedMegaRenderer(isect, sd, whitted_config(w, h, accumulate=True))
+    for i in range(4):
+        a_out = acc.render(whitted_camera(merged, WH_THETA + 0.002 * i, w, h))
+    require(acc.frame == 4 and a_out["accu"].shape == (h, w, 4), "accumulated frames")
+    for f in ("image", "accu", "irradiance"):
+        require(bool(torch.isfinite(a_out[f]).all()), f"accumulated frame: non-finite {f}")
+    log(f"[whitted] 4 accumulated frames: accu {tuple(a_out['accu'].shape)}, finite")
+    res = dict(launches=launches, expected=expected, err=err, frac=frac, shares=shares)
+    if device == "cpu":
+        return res
+
+    cams = [whitted_camera(merged, WH_THETA + 0.001 * i, w, h) for i in range(16)]
+
+    def frame(i):
+        return render_whitted_mega(isect, sd, cams[i % 16], w, h, 0, config=cfg)
+
+    frame(0)
+    for _attempt in range(3):        # host-bound frames: retry a noisy pair
+        ms = [cuda_ms(frame, c) for c in counts]
+        agree = abs(ms[1] - ms[0]) <= SLOPE_RTOL * ms[1]
+        if agree:
+            break
+        log(f"[whitted] timing {ms[0]:.4f} vs {ms[1]:.4f} ms/frame disagree; again")
+    slope = (ms[1] * counts[1] - ms[0] * counts[0]) / (counts[1] - counts[0])
+    # RenderConfig.compact=False (the default) shades every primary ray at
+    # every stage with no host sync for a live count
+    u_cfg = whitted_config(w, h, compact=False)
+    render_whitted_mega(isect, sd, cams[0], w, h, 0, config=u_cfg)
+    ms_u = cuda_ms(lambda i: render_whitted_mega(isect, sd, cams[i % 16], w, h, 0,
+                                                 config=u_cfg), counts[0])
+    log(f"[whitted] compact=False: {ms_u:.4f} ms/frame over {counts[0]} frames "
+        f"(compact=True {ms[0]:.4f} over {counts[0]}, {ms[1]:.4f} over {counts[1]})")
+    before = mega.KERNEL_LAUNCHES["mega_rays"]
+    wall, busy, kernels = device_busy(lambda: [frame(i) for i in range(4)])
+    per_frame = (mega.KERNEL_LAUNCHES["mega_rays"] - before) / 4
+    b2_dev = kernel_device_ms(lambda: frame(0), 2, "mega_rays_kernel")
+    idle = "not measured" if busy is None else f"{1.0 - busy / wall:.4f}"
+    log(f"[whitted] timing {w}x{h}: {ms[0]:.4f} ms/frame over {counts[0]} frames, "
+        f"{ms[1]:.4f} over {counts[1]}, {'agree' if agree else 'do NOT agree'} within "
+        f"{SLOPE_RTOL:.0%} (differential {slope:.4f} ms/frame); "
+        f"{w * h / ms[1] * 1e3:.4g} primary rays/s; profiled 4 frames: wall "
+        f"{wall / 4:.4f} ms/frame, device busy "
+        f"{'not measured' if busy is None else f'{busy / 4:.4f} ms/frame'} in "
+        f"{kernels / 4:.1f} kernels/frame, idle share {idle}; mega_rays launches "
+        f"{per_frame:.1f} a frame over the window's 4 cameras (main path "
+        f"{launches['mega_rays']}, bench_suite's formula {expected - 1}), device time per "
+        f"launch {'not measured' if b2_dev is None else f'{b2_dev:.4f} ms'}")
+    require(agree, f"whitted frame times disagree: {ms}")
+    res.update(ms=ms[1], diff_ms=slope, uncompacted_ms=ms_u, wall=wall / 4,
+               busy=None if busy is None else busy / 4, kernels=kernels / 4,
+               idle=None if busy is None else 1.0 - busy / wall,
+               b2_window_per_frame=per_frame, b2_dev_ms=b2_dev)
+    return res
+
+
+def phase_lambert_accumulate(mv):
+    """[lit accumulate] render_lambert_mega with prev_accu on the bench
+    frame: identical deterministic frames make the 95 % history blend a
+    fixed point on hit pixels inside evenly lit regions.  Next to an edge
+    it need not be (the reference's own float32 arithmetic,
+    renderer.cpp:298-305): where uv * W lands a few ulps below a pixel
+    coordinate the bilinear weights leak a few 1e-4 onto the neighbours,
+    and where a tap's base + 1 rounds up across a power of two (x = 512,
+    1024) the sample lands one pixel over; JAX's reproject_accumulate
+    moves edge pixels alike at this frame size
+    (tests/test_torch_shading.py::test_reproject_full_frame_edges_match_jax).
+    The kernel frame equals the plain one."""
+    from voxel_tracer_tpu_torch.ops.cuda import mega
+    from voxel_tracer_tpu_torch.renderer import empty_accu
+    cam = bench_camera(0.0, W / H)
+    base = mega.render_lambert_mega(mv, cam, W, H, sun_dir=SUN)
+    accu = empty_accu(W, H, "cuda")
+    for _ in range(3):
+        out = mega.render_lambert_mega(mv, cam, W, H, sun_dir=SUN, prev_accu=accu,
+                                       prev_planes=cam.planes)
+        accu = out["accu"]
+    plain = mega.render_lambert_mega_plain(mv, cam, W, H, sun_dir=SUN, prev_accu=accu,
+                                           prev_planes=cam.planes)
+    k = mega.render_lambert_mega(mv, cam, W, H, sun_dir=SUN, prev_accu=accu,
+                                 prev_planes=cam.planes)
+    torch.cuda.synchronize()
+    hit = base["depth"] < mega.BIG
+    irr = base["irradiance"]
+    # hit pixels whose 8 neighbours are hits of the same irradiance: a
+    # sample moved one pixel over lands on the same value
+    flat = hit.clone()
+    flat[0, :] = flat[-1, :] = False
+    flat[:, 0] = flat[:, -1] = False
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            nb = (dy, dx)
+            flat &= torch.roll(hit, nb, (0, 1)) & (torch.roll(irr, nb, (0, 1)) == irr).all(-1)
+    d = (out["irradiance"] - irr).abs().amax(-1)
+    d_flat, d_edge = float(d[flat].max()), float(d[hit & ~flat].max())
+    dk = {f: float((k[f] - plain[f]).abs().max()) for f in ("irradiance", "accu", "depth")}
+    log(f"[lit accumulate] render_lambert_mega with prev_accu at {W}x{H}: 3 frames; "
+        f"irradiance vs the frame without history: max |d| {d_flat:.3g} on the "
+        f"{int(flat.sum())} of {int(hit.sum())} hit pixels inside evenly lit regions, "
+        f"{d_edge:.3g} on the rest (edges: {int((hit & ~flat & (d > 1e-4)).sum())} "
+        f"pixels off by more than 1e-4); kernel vs plain {dk}")
+    require(int(flat.sum()) > int(hit.sum()) // 2, "lit accumulate: few evenly lit pixels")
+    require(d_flat <= 1e-4, f"lit accumulate is not a fixed point: {d_flat}")
+    require(all(v <= T_ATOL for v in dk.values()), f"lit accumulate kernel vs plain {dk}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1131,6 +1440,7 @@ def main():
     rays = phase_trace_rays("trace_rays random", mv, o_rand, d_rand, True)
     err_cam = max(err_cam, phase_flat("flat frame", mv, bench_camera(0.0, W / H)))
     err_cam = max(err_cam, phase_lit(mv))
+    phase_lambert_accumulate(mv)
     o_sh, d_sh = lit_shadow_rays(mv, bench_camera(0.0, W / H))
     shadow = phase_trace_rays("trace_rays lit shadow", mv, o_sh, d_sh, False)
     del o_sh, d_sh
@@ -1155,11 +1465,22 @@ def main():
     phase_two_volumes()
     ind = phase_indep(mv, o_rand, d_rand)
     new_times = phase_new_timing(kr, ind, mv, o_rand, d_rand)
+    wh = phase_whitted()
 
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(smi)
     src = "voxel_tracer_tpu_torch/csrc/mega.cu"
     isrc = "voxel_tracer_tpu_torch/csrc/diffint.cu"
+    # launches: the main path's 1280x768 frame, counted from 0
+    whitted = dict(launches=wh["launches"]["mega_rays"],
+                   camera_launches=wh["launches"]["mega_camera"],
+                   window_launches_per_frame=wh["b2_window_per_frame"],
+                   device_ms=wh["b2_dev_ms"], frame_ms=wh["ms"],
+                   frame_uncompacted_ms=wh["uncompacted_ms"],
+                   frame_differential_ms=wh["diff_ms"],
+                   frame_device_busy_ms=wh["busy"], kernels_per_frame=wh["kernels"],
+                   idle_share=wh["idle"], max_abs_err=wh["err"],
+                   bench_suite_launches_per_frame=wh["expected"] - 1)
     kernels = [
         dict(name="mega_camera", route="cuda", source=src,
              replaces="voxel_tracer_tpu/ops/pallas/mega.py:2536",
@@ -1175,7 +1496,8 @@ def main():
              bound_by=rays["bound"][1], library_ms=None,
              lit_shadow_rays=dict(ms=shadow["ms"], differential_ms=shadow["diff_ms"],
                                   device_ms=shadow["dev_ms"], plain_ms=shadow["plain_ms"],
-                                  bound_ms=shadow["bound"][0], bound_by=shadow["bound"][1]))]
+                                  bound_ms=shadow["bound"][0], bound_by=shadow["bound"][1]),
+             whitted=whitted)]
     for name, mode, line, err in (
             ("integrate_fwd", "fwd", 511, max(train["err_fwd"], diffint_res["err_fwd"])),
             ("integrate_bwd", "bwd", 544, max(train["err_bwd"], diffint_res["err_bwd"]))):

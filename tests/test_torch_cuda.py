@@ -508,3 +508,99 @@ def test_indep_kernel_rejects_bad_input(cuda):
     mv = mega.MegaVolume(_sphere_volume(), cuda)
     with pytest.raises(ValueError):
         indep.trace_rays_indep(o, o, occb.cpu(), mv.tables)
+
+
+# ---------------------------------------------------------------------------
+# The full-material Whitted frame on B1 / B2
+# ---------------------------------------------------------------------------
+
+def _material_scene(device):
+    """tests/test_whitted_mega.py's material scene with the port's own
+    classes: floor, hollow glass box around a pillar, mirror slab, sphere
+    light, procedural sky."""
+    from voxel_tracer_tpu_torch.models.scene import Scene
+    from voxel_tracer_tpu_torch.models.skydome import SkyDome
+    n = 32
+    g = np.zeros((n, n, n), np.uint8)
+    g[:, 0:3, :] = 30
+    g[10:24, 3:17, 4:16] = 3
+    g[12:22, 5:15, 6:14] = 0
+    g[14:20, 3:11, 8:12] = 40
+    g[:, 3:20, 26:28] = 12
+    pal = np.random.RandomState(7).rand(256, 3).astype(np.float32) * 0.8 + 0.1
+    vol = VoxelVolume(g, palette=pal, vpu=20.0)
+    scene = Scene(volumes=[vol], skydome=SkyDome.procedural(32, 16))
+    scene.add_light((0.5, 1.2, -0.6), 0.08, (1.0, 0.9, 0.8), 6.0)
+    return vol, scene.data(device)
+
+
+@pytest.mark.parametrize("compact", [False, True])
+def test_whitted_frame_kernel_equals_plain(cuda, compact):
+    """Every trace of the frame on B1 / B2 vs the same frame traced by the
+    plain versions: bit for bit, field for field."""
+    from voxel_tracer_tpu_torch.ops.cuda.whitted import MegaIntersector, render_whitted_mega
+    from voxel_tracer_tpu_torch.renderer import RenderConfig
+    vol, sd = _material_scene(cuda)
+    mv = mega.MegaVolume(vol, cuda)
+    w, h = 96, 64
+    cfg = RenderConfig(width=w, height=h, shading="full", max_bounces=3,
+                       glass_reflections=2, compact=compact)
+    cam = Camera.create((1.1, 0.9, -1.5), (0.0, 0.3, 0.0), w / h)
+    before = dict(mega.KERNEL_LAUNCHES)
+    k = render_whitted_mega(MegaIntersector(mv, shadow_rounds=2, compact=compact),
+                            sd, cam, w, h, 5, config=cfg)
+    assert mega.KERNEL_LAUNCHES["mega_camera"] == before["mega_camera"] + 1
+    assert mega.KERNEL_LAUNCHES["mega_rays"] > before["mega_rays"] + 10
+    plain = MegaIntersector(mv, shadow_rounds=2, compact=compact,
+                            trace_fn=mega.trace_rays_plain,
+                            tiles_fn=mega.render_mega_tiles_plain)
+    p = render_whitted_mega(plain, sd, cam, w, h, 5, config=cfg)
+    torch.cuda.synchronize()
+    for f in k:
+        assert torch.equal(k[f], p[f]), f
+    mats = k["material"]
+    assert bool(((mats >= 1) & (mats <= 8)).any()) and bool(((mats >= 9) & (mats <= 16)).any())
+
+
+def test_inverted_table_kernel_matches_plain(cuda):
+    """B2 on the inverted tables of a glass id (occupied = voxel != 4,
+    materials of the grid) on a 36x20x28 grid whose glass touches the far
+    faces."""
+    g = np.zeros((36, 20, 28), np.uint8)
+    g[6:, 4:, 9:] = 4
+    g[14:20, 8:12, 14:18] = 40
+    g[24:30, 6:9, 20:24] = 12
+    tb = mega.pack_tables(g, np.ones((256, 3), np.float32), 20.0, cuda, occupied=g != 4)
+    rng = np.random.RandomState(3)
+    n = 16384
+    o = rng.uniform(-0.1, 1.9, (n, 3)).astype(np.float32)
+    d = rng.randn(n, 3).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o_t, d_t = torch.from_numpy(o).to(cuda), torch.from_numpy(d).to(cuda)
+    k = mega.trace_rays(o_t, d_t, tb, fetch_mat=True)
+    p = mega.trace_rays_plain(o_t, d_t, tb, fetch_mat=True)
+    torch.cuda.synchronize()
+    for f in ("t", "mat", "ax", "steps", "resolved"):
+        assert torch.equal(k[f], p[f]), f
+    hit = k["t"] < mega.BIG
+    assert bool(hit.any()) and bool((k["mat"][hit] == 0).any())      # air exits
+
+
+def test_lambert_mega_prev_accu_kernel_matches_plain(cuda):
+    vol = VoxelVolume.noise_filled((40, 48, 56))
+    mv = mega.MegaVolume(vol, cuda)
+    w, h = 96, 48
+    from voxel_tracer_tpu_torch.renderer import empty_accu
+    accu, planes = empty_accu(w, h, cuda), None
+    for pos in ((2.0, 1.4, -2.4), (2.02, 1.4, -2.38)):
+        cam = Camera.create(pos, (0.0, 0.0, 0.0), w / h)
+        planes = cam.planes if planes is None else planes
+        kw = dict(prev_accu=accu, prev_planes=planes, depth_delta=0.01)
+        k = mega.render_lambert_mega(mv, cam, w, h, **kw)
+        p = mega.render_lambert_mega_plain(mv, cam, w, h, **kw)
+        torch.cuda.synchronize()
+        for f in ("depth", "normal", "material", "steps"):
+            assert torch.equal(k[f], p[f]), f
+        for f in ("irradiance", "accu"):
+            assert float((k[f] - p[f]).abs().max()) <= 1e-5, f
+        accu, planes = k["accu"], cam.planes

@@ -218,6 +218,19 @@ def test_port_imports_no_jax():
             "import voxel_tracer_tpu_torch.utils.checkpoint\n"
             "import voxel_tracer_tpu_torch.utils.logging\n"
             "import voxel_tracer_tpu_torch.examples.inverse_render\n"
+            "import voxel_tracer_tpu_torch.renderer\n"
+            "import voxel_tracer_tpu_torch.models.scene\n"
+            "import voxel_tracer_tpu_torch.models.volume\n"
+            "import voxel_tracer_tpu_torch.models.camera\n"
+            "import voxel_tracer_tpu_torch.ops.prims\n"
+            "import voxel_tracer_tpu_torch.ops.dda\n"
+            "import voxel_tracer_tpu_torch.ops.composite\n"
+            "import voxel_tracer_tpu_torch.ops.compact\n"
+            "import voxel_tracer_tpu_torch.ops.noise\n"
+            "import voxel_tracer_tpu_torch.ops.shading\n"
+            "import voxel_tracer_tpu_torch.ops.reproject\n"
+            "import voxel_tracer_tpu_torch.ops.tonemap\n"
+            "import voxel_tracer_tpu_torch.ops.cuda.whitted\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'voxel_tracer_tpu')]\n"
             "assert not bad, bad\n")

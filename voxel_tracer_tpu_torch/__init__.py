@@ -15,7 +15,10 @@ This package imports `torch` and numpy, never `jax` or `voxel_tracer_tpu`.
 __version__ = "0.1.0"
 
 from voxel_tracer_tpu_torch.models.camera import Camera
+from voxel_tracer_tpu_torch.models.scene import Scene
 from voxel_tracer_tpu_torch.models.volume import VoxelVolume
 from voxel_tracer_tpu_torch.models.vox import load_vox
+from voxel_tracer_tpu_torch.renderer import RenderConfig, Renderer
 
-__all__ = ["Camera", "VoxelVolume", "load_vox"]
+__all__ = ["Camera", "Renderer", "RenderConfig", "Scene", "VoxelVolume",
+           "load_vox"]

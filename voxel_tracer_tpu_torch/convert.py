@@ -1,9 +1,11 @@
 """Carry scene and training state from the JAX package into the port.
 
-The functions read the attributes of the JAX objects as numpy arrays and
-never import the JAX package, so the port stays free of it; tests use
-them to render one scene through both packages, and a training run
-started with the JAX trainer resumes in the port's (`Trainer.load_state`).
+The functions read the attributes of the JAX objects as numpy arrays (a
+JAX `SceneData` field by field: the port's records keep the JAX field
+order) and never import the JAX package, so the port stays free of it;
+tests use them to render one scene through both packages, and a training
+run started with the JAX trainer resumes in the port's
+(`Trainer.load_state`).
 """
 
 from __future__ import annotations
@@ -30,6 +32,32 @@ def skydome_from_jax(sky) -> SkyDome:
     """Port `SkyDome` of a JAX `SkyDome` (its numpy pixels) or of its
     `SkyDomeData` (device pixels)."""
     return SkyDome(np.array(sky.pixels, np.float32))
+
+
+def scene_from_jax(scene, device="cuda"):
+    """Port `SceneData` of a JAX `SceneData`: every array (volume groups,
+    sun, lights, sky pixels, primitives) copied through numpy onto
+    ``device``, integers as int32, floats as float32."""
+    from voxel_tracer_tpu_torch.models.scene import SceneData, SphereLightData
+    from voxel_tracer_tpu_torch.models.skydome import SkyDomeData
+    from voxel_tracer_tpu_torch.models.volume import VolumeData
+    from voxel_tracer_tpu_torch.ops.prims import PrimsData
+
+    def t(a):
+        a = np.asarray(a)
+        a = a.astype(np.int32 if np.issubdtype(a.dtype, np.integer) else np.float32)
+        return torch.tensor(a, device=device)
+
+    def conv(cls, rec):
+        return cls(*(t(f) for f in rec))
+    return SceneData(
+        groups=tuple(conv(VolumeData, g) for g in scene.groups),
+        sun_dir=t(scene.sun_dir),
+        sun_light=t(scene.sun_light),
+        lights=conv(SphereLightData, scene.lights),
+        sky=conv(SkyDomeData, scene.sky),
+        prims=conv(PrimsData, scene.prims),
+    )
 
 
 def camera_from_jax(cam) -> Camera:

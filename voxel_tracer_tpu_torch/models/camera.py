@@ -4,7 +4,9 @@ Counterpart of `voxel_tracer_tpu/models/camera.py` (the reference camera,
 src/graphics/camera.{h,cpp}, and Pyramid, src/graphics/rays/pyramid.cpp).
 The basis (tl/tr/bl) is derived from pos/target like Camera::tick
 (camera.cpp:3-16).  Camera fields are float32 CPU tensors; ray generation
-runs on the card unless the caller asks for another `device`.
+runs on the card unless the caller asks for another `device`.  The view
+pyramid's planes project world points to the previous frame's UV for
+temporal reprojection (`pyramid_project`, pyramid.cpp:52-66).
 """
 
 from __future__ import annotations
@@ -36,6 +38,9 @@ class Camera(NamedTuple):
         pos = torch.as_tensor(pos, dtype=torch.float32)
         target = torch.as_tensor(target, dtype=torch.float32)
         return Camera(pos, target, *_basis_and_pyramid(pos, target, aspect))
+
+    def look_at(self, pos, target, aspect: float = 16.0 / 9.0) -> "Camera":
+        return Camera.create(pos, target, aspect)
 
 
 def _basis_and_pyramid(pos, target, aspect):
@@ -98,3 +103,17 @@ def rays_for_image(cam: Camera, width: int, height: int, jitter=None,
         ys = ys + jitter[..., 1]
     o, d = primary_rays(cam, xs, ys, width, height)
     return o.reshape(-1, 3), d.reshape(-1, 3)
+
+
+def pyramid_project(planes: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    """Project world points to the pyramid's [0,1]^2 UV (pyramid.cpp:52-66).
+
+    planes: (4, 4) left/right/top/bottom; points: (..., 3) on any device.
+    Each plane distance is summed in a fixed order, so every device rounds
+    it the same way."""
+    pl = planes.to(points.device, torch.float32)
+    x, y, z = points[..., 0], points[..., 1], points[..., 2]
+    d = [x * pl[k, 0] + y * pl[k, 1] + z * pl[k, 2] + pl[k, 3] for k in range(4)]
+    u = d[0] / (d[0] + d[1])
+    v = d[2] / (d[2] + d[3])
+    return torch.stack([u, v], dim=-1)

@@ -26,8 +26,9 @@ always counted), `mat16`, `brick`, `mat_bsize`, `slice_depth`,
 `interpret`, `fetch_mat` of the camera frame (materials are fetched
 unless shading is 'trace'), and for the lit frame `shadow_tile_rows`, `use_brick16`,
 `use_hier3`, `use_hier3p`, `use_brick32`, `shadow_slice_depth` and
-`shadow_block`.  Temporal reprojection (`prev_accu`) comes with a later
-slice and raises `NotImplementedError` until then.
+`shadow_block`.  The lit frame's temporal reprojection (`prev_accu`,
+`prev_planes`, `depth_delta`) runs as the JAX kernel path's does, on any
+width and height (the port has no tile padding).
 
 The kernel reads the brick flags as a bitmap (`MegaTables.bitmap`, built
 once by `pack_tables`) through the read-only path.
@@ -85,7 +86,11 @@ class MegaTables(NamedTuple):
     """Device tables of one volume.
 
     The kernel reads `bitmap`, `occw`, `matb` and `pal`; the plain version
-    reads `grid`, `brick_occ` and `pal`.  Brick index
+    reads `grid`, `brick_occ` and `pal`.  Occupancy (`bitmap`, `occw`,
+    `bocc`, `brick_occ`) and materials (`matb`) are separate, so a table
+    set may mark other voxels solid than the nonzero ones (`pack_tables`'
+    ``occupied``); its plain `grid` then holds 256 | id on solid voxels
+    and 0 elsewhere, and the material is the low byte.  Brick index
     b = (bz * BY + by) * BX + bx; voxel index inside a brick
     i = z * 64 + y * 8 + x (vv.h:23-38); bit i of the brick's 512-bit
     occupancy is bit i % 32 of word i // 32, and brick b's flag is bit
@@ -96,7 +101,8 @@ class MegaTables(NamedTuple):
     bitmap: torch.Tensor     # (ceil(NB / 32),) int32 (uint32 bits) brick flags
     occw: torch.Tensor       # (NB, 16) int32 (uint32 bits) occupancy words
     matb: torch.Tensor       # (NB, 512) uint8 material bytes
-    grid: torch.Tensor       # (Z, Y, X) uint8 material ids
+    grid: torch.Tensor       # (Z, Y, X) uint8 material ids (int32 256 | id
+                             # where ``occupied`` differs from id != 0)
     brick_occ: torch.Tensor  # (BZ, BY, BX) int32 solid count per brick
     pal: torch.Tensor        # (256, 3) float32 palette albedo
     bsize: tuple             # (BX, BY, BZ)
@@ -136,21 +142,33 @@ def brick_bitmap(bocc: np.ndarray) -> np.ndarray:
 
 
 def pack_tables(grid: np.ndarray, palette: np.ndarray, vpu: float,
-                device="cuda") -> MegaTables:
+                device="cuda", occupied: np.ndarray = None) -> MegaTables:
     """Pack a (Z, Y, X) uint8 grid and its palette for the kernel and the
-    plain version (the layout spec is `pack_mega` of the JAX package)."""
+    plain version (the layout spec is `pack_mega` of the JAX package).
+
+    occupied: optional (Z, Y, X) bool grid of the voxels a ray stops at,
+    in place of grid != 0, while the material read at the hit stays the
+    grid's byte; e.g. grid != g, the inverted tables of glass id g whose
+    first solid voxel is a ray's exit from the medium.  It is zero-padded
+    to whole bricks like the grid."""
     grid = np.ascontiguousarray(grid, np.uint8)
     gz, gy, gx = grid.shape
     matb, (bx, by, bz) = brick_bytes(grid)
-    occw = occupancy_words(matb)                                  # (NB, 16)
+    if occupied is None:
+        occ_b, plain = matb, grid
+    else:
+        occupied = np.asarray(occupied, bool)
+        occ_b = brick_bytes(occupied.astype(np.uint8))[0]
+        plain = np.where(occupied, grid.astype(np.int32) | 256, 0).astype(np.int32)
+    occw = occupancy_words(occ_b)                                 # (NB, 16)
     bocc = (occw != 0).any(axis=1).astype(np.int32)
-    brick_occ = matb.astype(bool).sum(axis=1, dtype=np.int32).reshape(bz, by, bx)
+    brick_occ = occ_b.astype(bool).sum(axis=1, dtype=np.int32).reshape(bz, by, bx)
     return MegaTables(
         bocc=torch.tensor(bocc, device=device),
         bitmap=torch.tensor(brick_bitmap(bocc), device=device),
         occw=torch.tensor(occw, device=device),
         matb=torch.tensor(matb, device=device),
-        grid=torch.tensor(grid, device=device),
+        grid=torch.tensor(plain, device=device),
         brick_occ=torch.tensor(brick_occ, device=device),
         pal=torch.tensor(np.asarray(palette, np.float32), device=device),
         bsize=(bx, by, bz),
@@ -272,7 +290,7 @@ def _trace_aux(tables: MegaTables, o_l, d_l, fetch_mat):
     sign_pos = (torch.gather(r["step_sign"], 1, axis[:, None])[:, 0] > 0)
     ax = torch.where(hit, r["axis"] * 2 + sign_pos.to(torch.int32),
                      r["entry_axis"] * 2)
-    mat = r["mat"] if fetch_mat else torch.zeros_like(r["mat"])
+    mat = r["mat"] & 255 if fetch_mat else torch.zeros_like(r["mat"])
     aux = (mat | (ax << AUX_AX_SHIFT)
            | (r["resolved"].to(torch.int32) << AUX_RESOLVED_SHIFT)
            | (torch.clamp(r["steps"], max=0x7ffff) << AUX_STEPS_SHIFT))
@@ -487,25 +505,30 @@ def render_lambert_mega(mv: MegaVolume, camera, width, height, *,
     Shadow rays start at the hit point offset by 1e-4 along the normal;
     back-facing and missed pixels park theirs at 1e6, outside the volume;
     a pixel is occluded only if its shadow ray hits and is resolved.
-    Temporal reprojection (`prev_accu`, `prev_planes`, `depth_delta`)
-    comes with a later slice.
+
+    prev_accu (H, W, 4) + prev_planes (4, 4): temporal reprojection
+    (renderer.cpp:273-329) blends 95 % irradiance history with depth
+    rejection and returns the new accumulator as out["accu"]; pass this
+    frame's ``camera.planes`` as the next frame's prev_planes.
     """
-    if prev_accu is not None:
-        raise NotImplementedError(
-            "temporal reprojection (prev_accu) is not ported yet")
     return _lambert_frame(mv, camera, width, height, sun_dir, sun_light,
-                          ambient, render_mega_tiles, trace_rays)
+                          ambient, render_mega_tiles, trace_rays,
+                          prev_accu, prev_planes, depth_delta)
 
 
 def render_lambert_mega_plain(mv: MegaVolume, camera, width, height, *,
-                              sun_dir=None, sun_light=None, ambient=0.2):
+                              sun_dir=None, sun_light=None, ambient=0.2,
+                              prev_accu=None, prev_planes=None,
+                              depth_delta=0.0):
     """Plain PyTorch version of `render_lambert_mega`, on any device."""
     return _lambert_frame(mv, camera, width, height, sun_dir, sun_light,
-                          ambient, render_mega_tiles_plain, trace_rays_plain)
+                          ambient, render_mega_tiles_plain, trace_rays_plain,
+                          prev_accu, prev_planes, depth_delta)
 
 
 def _lambert_frame(mv, camera, width, height, sun_dir, sun_light, ambient,
-                   tiles_fn, trace_fn):
+                   tiles_fn, trace_fn, prev_accu=None, prev_planes=None,
+                   depth_delta=0.0):
     dev = mv.device
     sd = torch.tensor(np.array(SUN_DIR if sun_dir is None else sun_dir,
                                np.float32))
@@ -542,13 +565,23 @@ def _lambert_frame(mv, camera, width, height, sun_dir, sun_light, ambient,
 
     lit = need_shadow & ~occluded
     irr = torch.where(lit[:, None], sl * incidence[:, None], 0.0) + ambient
+    out = {}
+    if prev_accu is not None:
+        # temporal reprojection of the irradiance term (renderer.cpp:273-329);
+        # hit points come straight from the kernel's t
+        from voxel_tracer_tpu_torch.ops.reproject import reproject_accumulate
+        hit_points = origins + dirs * torch.clamp(t, max=BIG)[:, None]
+        irr, out["accu"] = reproject_accumulate(
+            irr, torch.where(hit, t, BIG), hit_points, prev_accu.to(dev),
+            prev_planes, width, height, depth_delta=depth_delta,
+            reproject_mask=hit)
     sun_n = sd / torch.linalg.norm(sd)
     sky = torch.stack(_analytic_sky(dirs.unbind(-1), sun_n), dim=-1)
     color = torch.where(hit[:, None], alb * irr, sky)
     img = _to8(_aces(color)).to(torch.uint8)
     steps = (aux >> AUX_STEPS_SHIFT) & 0x7ffff
     shp = (height, width)
-    return dict(
+    out.update(
         image=img.reshape(*shp, 3),
         albedo=alb.reshape(*shp, 3),
         irradiance=irr.reshape(*shp, 3),
@@ -557,3 +590,4 @@ def _lambert_frame(mv, camera, width, height, sun_dir, sun_light, ambient,
         steps=(steps + sh["steps"]).reshape(shp),
         material=(aux & 255).reshape(shp),
     )
+    return out

@@ -27,6 +27,11 @@ def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.linalg.cross(a, b, dim=-1)
 
 
+def reflect(d: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """Mirror reflection of direction ``d`` about unit normal ``n``."""
+    return d - 2.0 * dot(d, n)[..., None] * n
+
+
 def sign_dir(d: torch.Tensor) -> torch.Tensor:
     """Per-axis ray-direction sign (+1 / -1), positive for +0.
 
