@@ -33,7 +33,18 @@ them:
   traced by the plain versions at 1280x768 and at 320x192, equal field
   for field; the wavefront `Renderer` at 320x192; four accumulated frames;
   frame time compacted and not, device busy share, kernels and B2
-  launches a frame.
+  launches a frame; B2 on the frame's own ray lists, replayed alone;
+- the reference's default scene: `render_whitted_multi` over five
+  separate volumes (`make_drone_scene`: the glass box and four turned
+  drones, one laser capsule) with game_demo's config at 1280x768, every
+  traversal on B2; the same frame traced by B2's plain version, the
+  wavefront `Renderer`, a drone moved by `with_transforms`, O(1) table
+  edits against a repack, frame time and host syncs; then game_demo's
+  loop for 30 frames (the laser must carve voxels);
+- the differentiable surface path: `render_lambert_surface_mega` on the
+  bench scene at 512x512 (B1 + B2 under autograd) against the same
+  computation on the plain versions and against the wavefront
+  `render_lambert_surface`, and 20 Adam steps of its palette fit.
 
 Each main path runs with the launch counts set to 0 just before it and
 read just after.  It prints one line per phase, then the card's name and
@@ -56,7 +67,14 @@ numbers (`grid_128`), B4 the long sparse volume's (`budget_rays`); B2 its
 numbers on the lit frame's shadow-ray list (`lit_shadow_rays`) and in the
 Whitted frame (`whitted`: B2 and B1 launches of the main path's frame,
 B2's device ms per launch, the frame's ms compacted and not, device busy
-ms and idle share), B6 and B7
+ms and idle share, and its ray lists replayed: `lists_ms`,
+`lists_device_ms`, `lists_plain_ms`, `lists_bound_ms`: per list the
+rays, the bitmap, and the occupancy words and material bytes the list can
+touch, `list_bound_bytes`) and in the default scene's frame (`multi`: the
+same, host syncs a frame, us per O(1) edit, and game_demo's numbers under
+`game`); B1 its numbers on the surface path (`surface`: launches, colour
+and gradient against the plain versions on the bench grid and a
+palette-varied copy, ms per Adam step on each); B6 and B7
 `dup_warp_step_share` (share of warp-steps in which
 two of 32 consecutive rays meet one voxel, counted by the plain march) at
 training shapes, and the same numbers on diff_lambert_512.  Serialized
@@ -163,6 +181,28 @@ def cuda_ms(fn, reps):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def agreeing_frame_ms(tag, frame, counts, rounds, attempts=3):
+    """Per-frame CUDA-event ms of ``frame(i)`` at two frame counts, and
+    whether they agree within SLOPE_RTOL.  Host-bound frames move with the
+    host by 10-20 % from one second to the next, so the two counts take
+    turns, in alternating order, for ``rounds`` rounds, and each count's
+    per-frame ms is its mean over its rounds: both sample the same stretch
+    of host time.  A pair that disagrees is measured again, up to
+    ``attempts`` pairs."""
+    for _attempt in range(attempts):
+        per = ([], [])
+        for r in range(rounds):
+            for j in ((0, 1) if r % 2 == 0 else (1, 0)):
+                per[j].append(cuda_ms(frame, counts[j]))
+        ms = [float(np.mean(p)) for p in per]
+        agree = abs(ms[1] - ms[0]) <= SLOPE_RTOL * ms[1]
+        if agree:
+            break
+        log(f"[{tag}] timing {ms[0]:.4f} vs {ms[1]:.4f} ms/frame disagree (rounds "
+            f"{[round(v, 1) for v in per[0]]} and {[round(v, 1) for v in per[1]]}); again")
+    return ms, agree
 
 
 def compare_frames(tag, k, p):
@@ -685,23 +725,10 @@ def kernel_device_ms(fn, reps, name):
 
 
 def device_busy(fn):
-    """(wall ms, device-busy ms or None, kernels) of fn() under
-    torch.profiler: busy is the union of the device kernels' spans."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy, end = 0.0, -float("inf")
-    for a, b in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    return wall, (busy / 1e3 if spans else None), len(spans)
+    """(wall ms, device-busy ms or None, kernels) of fn(): the port's
+    `utils.timer.device_busy`."""
+    from voxel_tracer_tpu_torch.utils.timer import device_busy as busy
+    return busy(fn)
 
 
 def phase_train():
@@ -763,17 +790,19 @@ def phase_train():
 # kernels B3 / B4
 # ---------------------------------------------------------------------------
 
-def compare_traces(tag, k, p):
+def compare_traces(tag, k, p, quiet=False):
     """Ray-list outputs of a kernel and its plain version: hit mask and
-    every integer field equal, t within T_ATOL; returns max |dt|."""
+    every integer field equal, t within T_ATOL; returns max |dt|.  Logs
+    one line unless ``quiet``."""
     hk, hp = k["t"] < 1e30, p["t"] < 1e30
     both = hk & hp
     dt = _maxabs(k["t"][both] - p["t"][both])
     eq = {f: bool(torch.equal(k[f], p[f]))
           for f in ("vox", "mat", "ax", "steps", "resolved") if f in p}
-    log(f"[{tag}] {k['t'].numel()} rays: hit mismatches {int((hk != hp).sum())}, "
-        f"equal {eq}, t max |d| {dt:.3g}, hit fraction {float(hk.float().mean()):.4f}, "
-        f"unresolved {int((~k['resolved']).sum())}")
+    if not quiet:
+        log(f"[{tag}] {k['t'].numel()} rays: hit mismatches {int((hk != hp).sum())}, "
+            f"equal {eq}, t max |d| {dt:.3g}, hit fraction {float(hk.float().mean()):.4f}, "
+            f"unresolved {int((~k['resolved']).sum())}")
     require(bool(torch.equal(hk, hp)), f"{tag}: hit masks differ")
     require(all(eq.values()), f"{tag}: fields differ: {eq}")
     require(dt <= T_ATOL, f"{tag}: t differs by {dt}")
@@ -1132,6 +1161,7 @@ WH_BOUNCES, WH_GLASS_REFL, WH_SHADOW_ROUNDS = 3, 2, 2
 # plane of the grid's far z face, where grazing rays split between float
 # pipelines), looking through the grid's far corner into the scene
 WH_THETA = 0.05
+WH_ROUNDS = 5                   # frame timing: the two counts in turns
 # the kernel frame vs the port's wavefront Renderer: the CPU tests' pinned
 # budgets (tests/test_torch_renderer.py), as shares of the frame's pixels
 WH_COLOR_MISMATCH_SHARE = 130 / 3072    # pixels over 5 % relative error
@@ -1198,14 +1228,16 @@ def bench_suite_whitted_launches(n_glass):
 
 def check_whitted_frame(tag, out, width, height):
     """Shapes, finite values, a hit fraction strictly inside (0, 1), unit
-    normals on hits, glass and mirror rows in view."""
+    normals on voxel hits (a laser capsule's analytic normal is the
+    reference's unnormalized one), glass and mirror rows in view."""
+    from voxel_tracer_tpu_torch.ops.prims import LASER_MAT
     hit = out["depth"] < 1e30
     frac = float(hit.float().mean())
     require(out["image"].shape == (height, width, 3), f"{tag}: image shape")
     for f in ("image", "color", "irradiance", "albedo"):
         require(bool(torch.isfinite(out[f]).all()), f"{tag}: non-finite {f}")
     require(0.05 < frac < 0.99, f"{tag}: hit fraction {frac}")
-    n = out["normal"][hit]
+    n = out["normal"][hit & (out["material"] != LASER_MAT)]
     require(bool(torch.allclose(n.norm(dim=-1), torch.ones_like(n[:, 0]), atol=1e-6)),
             f"{tag}: normals are not unit length")
     rows = torch.div(out["material"][hit] - 1, 8, rounding_mode="floor")
@@ -1323,6 +1355,11 @@ def phase_whitted(device="cuda", size=(WH_W, WH_H), small=(WH_SMALL_W, WH_SMALL_
     res = dict(launches=launches, expected=expected, err=err, frac=frac, shares=shares)
     if device == "cpu":
         return res
+    # the ray lists B2 traces in the main path's frame, replayed alone
+    cap = ListCapture()
+    render_whitted_mega(MegaIntersector(mv, shadow_rounds=WH_SHADOW_ROUNDS, compact=True,
+                                        trace_fn=cap), sd, cam, w, h, 0, config=cfg)
+    res["lists"] = replay_lists("whitted", cap.lists)
 
     cams = [whitted_camera(merged, WH_THETA + 0.001 * i, w, h) for i in range(16)]
 
@@ -1330,12 +1367,7 @@ def phase_whitted(device="cuda", size=(WH_W, WH_H), small=(WH_SMALL_W, WH_SMALL_
         return render_whitted_mega(isect, sd, cams[i % 16], w, h, 0, config=cfg)
 
     frame(0)
-    for _attempt in range(3):        # host-bound frames: retry a noisy pair
-        ms = [cuda_ms(frame, c) for c in counts]
-        agree = abs(ms[1] - ms[0]) <= SLOPE_RTOL * ms[1]
-        if agree:
-            break
-        log(f"[whitted] timing {ms[0]:.4f} vs {ms[1]:.4f} ms/frame disagree; again")
+    ms, agree = agreeing_frame_ms("whitted", frame, counts, WH_ROUNDS)
     slope = (ms[1] * counts[1] - ms[0] * counts[0]) / (counts[1] - counts[0])
     # RenderConfig.compact=False (the default) shades every primary ray at
     # every stage with no host sync for a live count
@@ -1351,7 +1383,8 @@ def phase_whitted(device="cuda", size=(WH_W, WH_H), small=(WH_SMALL_W, WH_SMALL_
     b2_dev = kernel_device_ms(lambda: frame(0), 2, "mega_rays_kernel")
     idle = "not measured" if busy is None else f"{1.0 - busy / wall:.4f}"
     log(f"[whitted] timing {w}x{h}: {ms[0]:.4f} ms/frame over {counts[0]} frames, "
-        f"{ms[1]:.4f} over {counts[1]}, {'agree' if agree else 'do NOT agree'} within "
+        f"{ms[1]:.4f} over {counts[1]} (means of {WH_ROUNDS} rounds each, in turns), "
+        f"{'agree' if agree else 'do NOT agree'} within "
         f"{SLOPE_RTOL:.0%} (differential {slope:.4f} ms/frame); "
         f"{w * h / ms[1] * 1e3:.4g} primary rays/s; profiled 4 frames: wall "
         f"{wall / 4:.4f} ms/frame, device busy "
@@ -1418,6 +1451,524 @@ def phase_lambert_accumulate(mv):
     require(all(v <= T_ATOL for v in dk.values()), f"lit accumulate kernel vs plain {dk}")
 
 
+
+# ---------------------------------------------------------------------------
+# The default scene as a live game: five moving volumes on B2, the game loop,
+# and the differentiable surface path
+# ---------------------------------------------------------------------------
+
+MU_W, MU_H = 1280, 768                 # game_demo's frame
+MU_SMALL_W, MU_SMALL_H = 320, 192
+MU_BOUNCES, MU_SHADOW_ROUNDS = 2, 2    # game_demo: --bounces 2, shadow_rounds 2
+MU_FULL_PLAIN_S = 15.0                 # hold the 1280x768 frame to the plain one when
+                                       # its predicted time is under this
+MU_EDITS = 200
+MU_COUNTS, MU_ROUNDS = (1, 3), 15      # frame timing: 60 frames, the counts in turns
+MU_TARGET, MU_OFFSET = (1.0, 0.8, -1.5), (4.0, 2.0, 4.0)   # multi_camera's orbit
+SF_W = 512                             # BASELINE config 2: 512^2 diff. Lambertian
+SF_STEPS = 20
+SF_GRAD_RTOL = 1e-6                    # x max|g|: palette[mat]'s backward sorts the indices,
+                                       # so both paths sum each row in one order
+SF_MIN_MATERIALS = 200                 # materials with a gradient in the varied copy
+SF_COLOR_ATOL = 1e-6
+SF_WAVEFRONT_ATOL = 1e-4               # vs the wavefront on pixels both hit, same material
+SF_WAVEFRONT_SHARE = 0.99              # of those pixels within SF_WAVEFRONT_ATOL
+
+
+class ListCapture:
+    """A ray-list launcher that records each list it traces, then
+    launches B2 on it: the lists a frame hands the kernel."""
+
+    def __init__(self):
+        self.lists = []
+
+    def __call__(self, o, d, tables, *, fetch_mat=False):
+        from voxel_tracer_tpu_torch.ops.cuda import mega
+        self.lists.append((o, d, tables, fetch_mat))
+        return mega.trace_rays(o, d, tables, fetch_mat=fetch_mat)
+
+
+SECTOR = 32                            # bytes: the least a load moves from memory
+
+
+def list_bound_bytes(n, steps, tb, fetch_mat):
+    """Bytes B2 must move for one list of n rays that takes ``steps`` DDA
+    steps: each ray's origin and direction read and its 8 bytes of result
+    written once; the brick bitmap once; of the occupancy words at most one
+    sector a step, and of the material bytes (read only with fetch_mat) at
+    most one sector a ray, neither more than the whole table."""
+    nb = n * (24 + 8) + tb.bitmap.numel() * 4 + min(tb.occw.numel() * 4, SECTOR * steps)
+    return nb + (min(tb.matb.numel(), SECTOR * n) if fetch_mat else 0)
+
+
+def replay_lists(tag, lists):
+    """B2 on every ray list of one frame, in the frame's order: held to its
+    plain version list by list, CUDA-event ms for all lists, profiler
+    device ms per launch, plain ms for all lists, and the bound summed
+    over the lists (`list_bound_bytes`; operations from the DDA steps)."""
+    from voxel_tracer_tpu_torch.ops.cuda import mega
+
+    def run(fn):
+        return [fn(o, d, tb, fetch_mat=f) for o, d, tb, f in lists]
+
+    ks = run(mega.trace_rays)
+    t0 = time.perf_counter()
+    ps = run(mega.trace_rays_plain)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = max((compare_traces(f"{tag} list {i}", k, p, quiet=True)
+               for i, (k, p) in enumerate(zip(ks, ps))), default=0.0)
+    rays = sum(o.shape[0] for o, *_ in lists)
+    steps = sum(int(k["steps"].sum()) for k in ks)
+    b_bytes = b_ops = 0
+    for (o, _d, tb, f), k in zip(lists, ks):
+        n, n_steps = o.shape[0], int(k["steps"].sum())
+        b_bytes += list_bound_bytes(n, n_steps, tb, f)
+        b_ops += n * MEGA_OPS_PER_RAY + n_steps * MEGA_OPS_PER_STEP
+    bnd = bound(b_bytes, b_ops)
+    run(mega.trace_rays)
+    ms = cuda_ms(lambda i: run(mega.trace_rays), 4)
+    dev = kernel_device_ms(lambda: run(mega.trace_rays), 2, "mega_rays_kernel")
+    log(f"[{tag}] the frame's {len(lists)} B2 ray lists, {rays} rays "
+        f"({min(o.shape[0] for o, *_ in lists)}..{max(o.shape[0] for o, *_ in lists)} a list), "
+        f"{steps} DDA steps: kernel {ms:.4f} ms for all lists (events, host work included), "
+        f"device {'not measured' if dev is None else f'{dev:.4f} ms a launch, {dev * len(lists):.4f} ms in all'}; "
+        f"plain {plain_ms:.1f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}, {b_bytes} bytes); "
+        f"kernel = plain on every list (t max |d| {err:.3g})")
+    return dict(lists=len(lists), rays=rays, steps=steps, ms=ms, dev_ms=dev,
+                dev_total_ms=None if dev is None else dev * len(lists), plain_ms=plain_ms,
+                bound=bnd, err=err)
+
+
+def multi_scene():
+    """make_drone_scene's default scene (procedural stand-ins unless
+    VOXEL_TRACER_ASSET_DIR names the reference's assets): the glass box and
+    four drones turned to yaws != 0 as Enemy.tick sets them, one live laser
+    capsule toward drone 1 and seven parked ones (game_demo's 8 slots)."""
+    from voxel_tracer_tpu_torch.game.enemy import _yaw_matrix
+    from voxel_tracer_tpu_torch.ops.cuda.multi import make_drone_scene
+    vols, scene = make_drone_scene()
+    for i, v in enumerate(vols[1:]):
+        v.set_rotation(_yaw_matrix(0.4 + 0.9 * i))
+    scene.add_capsule((2.6, 2.9, -2.2), tuple(vols[2].pos), 0.02)
+    far = np.array([1e5, 1e5, 1e5], np.float32)
+    for _ in range(7):
+        scene.add_capsule(far, far + np.array([0, 0, 0.01], np.float32), 0.02)
+    return vols, scene
+
+
+def multi_camera(theta, width, height):
+    """A camera orbiting MU_TARGET (angle 10 theta about y): at theta = 0
+    it sees the glass box, the mirror plate's face, the four drones and
+    the laser (stand-in layout; outside every volume's grid)."""
+    from voxel_tracer_tpu_torch.models.camera import Camera
+    a = theta * 10.0
+    ox, oy, oz = MU_OFFSET
+    pos = (MU_TARGET[0] + ox * math.cos(a) - oz * math.sin(a), MU_TARGET[1] + oy,
+           MU_TARGET[2] + ox * math.sin(a) + oz * math.cos(a))
+    return Camera.create(pos, MU_TARGET, width / height)
+
+
+def multi_config(width, height):
+    from voxel_tracer_tpu_torch.renderer import RenderConfig
+    return RenderConfig(width=width, height=height, shading="full", max_bounces=MU_BOUNCES,
+                        glass_reflections=WH_GLASS_REFL, compact=True)
+
+
+def build_multi(mvs, **kw):
+    from voxel_tracer_tpu_torch.ops.cuda.multi import MultiMegaIntersector
+    from voxel_tracer_tpu_torch.ops.cuda.whitted import MegaIntersector
+    return MultiMegaIntersector([MegaIntersector(mv, shadow_rounds=MU_SHADOW_ROUNDS,
+                                                 compact=True, **kw) for mv in mvs])
+
+
+def check_tables_equal(tag, isect):
+    """Every device table of ``isect`` equals `pack_tables` of its volume's
+    grid (full and inverted), and the DDA grid equals the grid."""
+    from voxel_tracer_tpu_torch.ops.cuda import mega
+    vol, dev = isect.mv.volume, isect.device
+    sets = [("full", isect.full_tables, mega.pack_tables(vol.grid, vol.palette, vol.vpu, dev))]
+    sets += [(f"inverted {g}", isect.inv_tables[g],
+              mega.pack_tables(vol.grid, vol.palette, vol.vpu, dev, occupied=vol.grid != g))
+             for g in sorted(int(g) for g in np.unique(vol.grid) if 1 <= g <= 8)]
+    for name, tb, ref in sets:
+        for f in ("matb", "occw", "bocc", "bitmap", "grid", "brick_occ"):
+            require(bool(torch.equal(getattr(tb, f), getattr(ref, f))),
+                    f"{tag}: {name} table {f} differs from a repack")
+    require(bool(torch.equal(isect.grid_dda,
+                             torch.from_numpy(vol.grid.astype(np.int32)).to(dev))),
+            f"{tag}: grid_dda differs")
+    require(bool(torch.equal(isect.brick_occ, sets[0][2].brick_occ)), f"{tag}: brick_occ")
+    return len(sets)
+
+
+def sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def multi_edits(multi_k):
+    """[multi] O(1) edits: seeded set_voxel edits of drone 1 and of the
+    box's glass, a drone brick carved empty and an empty box brick filled;
+    every table against a repack; us per edit against MegaVolume.refresh."""
+    rng = np.random.RandomState(9)
+    drone, box = multi_k.vols[1], multi_k.vols[0]
+    dev = box.device
+    glass = np.argwhere(box.mv.volume.grid == 4)
+    edits = []
+    for k in range(MU_EDITS):
+        if k % 2:
+            z, y, x = glass[rng.randint(len(glass))]
+            edits.append((box, x, y, z, int(rng.choice([0, 4, 12, 40]))))
+        else:
+            x, y, z = rng.randint(16, size=3)
+            edits.append((drone, x, y, z, int(rng.choice([0, 17, 41, 12]))))
+    sync(dev)
+    t0 = time.perf_counter()
+    for isect, x, y, z, val in edits:
+        isect.set_voxel(int(x), int(y), int(z), val)
+    sync(dev)
+    us_edit = (time.perf_counter() - t0) / len(edits) * 1e6
+    # a drone brick carved empty, an empty box brick filled (64 voxels)
+    bz, by, bx = np.argwhere(drone.mv.volume.brick_occ > 0)[0]
+    solid = np.argwhere(drone.mv.volume.grid[bz * 8:bz * 8 + 8, by * 8:by * 8 + 8,
+                                             bx * 8:bx * 8 + 8] != 0)
+    for z, y, x in solid + np.array([bz * 8, by * 8, bx * 8]):
+        drone.set_voxel(int(x), int(y), int(z), 0)
+    empty = np.argwhere(box.mv.volume.brick_occ == 0)
+    require(len(empty) > 0, "the box has no empty brick to fill")
+    ez, ey, ex = empty[len(empty) // 2]
+    for z in range(4):
+        for y in range(4):
+            for x in range(4):
+                box.set_voxel(int(ex * 8 + x), int(ey * 8 + y), int(ez * 8 + z), 40)
+    sync(dev)
+    bsx, bsy, _ = drone.full_tables.bsize
+    require(int(drone.full_tables.bocc[(bz * bsy + by) * bsx + bx]) == 0,
+            "carved brick still flagged")
+    n_sets = (check_tables_equal("multi edits drone", drone)
+              + check_tables_equal("multi edits box", box))
+    t0 = time.perf_counter()
+    box.mv.refresh()
+    sync(dev)
+    us_refresh = (time.perf_counter() - t0) * 1e6
+    box.refresh_tables()
+    log(f"[multi] O(1) edits: {len(edits)} seeded set_voxel edits of drone 1 and the box's "
+        f"glass, {len(solid)} to carve a drone brick empty, 64 to fill an empty box brick; "
+        f"{n_sets} table sets equal a repack field for field (matb, occw, bocc, bitmap, "
+        f"grid, brick_occ) and grid_dda equals the grid; {us_edit:.1f} us per edit (host "
+        f"clock over the {len(edits)} seeded edits, synchronized) vs MegaVolume.refresh of "
+        f"the box {us_refresh:.0f} us")
+    return dict(us_per_edit=us_edit, us_refresh=us_refresh,
+                edits=len(edits) + len(solid) + 64)
+
+
+def phase_multi(device="cuda", size=(MU_W, MU_H), small=(MU_SMALL_W, MU_SMALL_H)):
+    """[multi] render_whitted_multi on the reference's default scene (five
+    separate volumes, drones turned) with game_demo's config at 1280x768
+    (launch counts at 0 just before, read just after); the same frame
+    traced by B2's plain version at 320x192 (and 1280x768 when that is
+    predicted under MU_FULL_PLAIN_S), the wavefront Renderer with
+    exact_fallback at 320x192, a moved drone, the frame's B2 lists alone,
+    O(1) edits, frame time."""
+    from voxel_tracer_tpu_torch.examples.game_demo import count_host_syncs
+    from voxel_tracer_tpu_torch.models.volume import VoxelVolume
+    from voxel_tracer_tpu_torch.ops.cuda import mega
+    from voxel_tracer_tpu_torch.ops.cuda.multi import MultiMegaIntersector, render_whitted_multi
+    from voxel_tracer_tpu_torch.ops.cuda.whitted import MegaIntersector
+    from voxel_tracer_tpu_torch.renderer import Renderer
+    t0 = time.perf_counter()
+    vols, scene = multi_scene()
+    sd = scene.data(device)
+    mvs = [mega.MegaVolume(v, device) for v in vols]
+    multi_k = build_multi(mvs)
+    (w, h), (sw, sh) = size, small
+    cfg, s_cfg = multi_config(w, h), multi_config(sw, sh)
+    cam, s_cam = multi_camera(0.0, w, h), multi_camera(0.0, sw, sh)
+    log(f"[multi] scene: {[v.grid.shape[::-1] for v in vols]} volumes, glass ids "
+        f"{[i.glass_ids for i in multi_k.vols]}, {len(scene.capsules)} capsules; built in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    mega.reset_launch_counts()
+    out = render_whitted_multi(multi_k, sd, cam, w, h, 0, config=cfg)
+    sync(device)
+    launches = dict(mega.KERNEL_LAUNCHES)
+    frac, shares = check_whitted_frame("multi", out, w, h)
+    log(f"[multi] render_whitted_multi at {w}x{h}, {MU_BOUNCES} bounces, {WH_GLASS_REFL} "
+        f"glass reflections, {MU_SHADOW_ROUNDS} shadow rounds, compact: launches "
+        f"{launches}; hit fraction {frac:.4f}, rows of hits {shares}")
+    if device != "cpu":
+        require(launches["mega_rays"] > 0, "kernel mega_rays was not launched on the multi path")
+
+    res = dict(launches=launches, frac=frac, shares=shares)
+    predicted = None
+    if device != "cpu":
+        # the lists B2 traces in this frame, replayed alone: their plain
+        # time is most of the plain-traced frame's
+        cap = ListCapture()
+        render_whitted_multi(build_multi(mvs, trace_fn=cap), sd, cam, w, h, 0, config=cfg)
+        res["lists"] = replay_lists("multi", cap.lists)
+        predicted = res["lists"]["plain_ms"] / 1e3 * 1.25
+    plain = build_multi(mvs, trace_fn=mega.trace_rays_plain)
+    err = compare_whitted(f"multi {sw}x{sh}",
+                          render_whitted_multi(multi_k, sd, s_cam, sw, sh, 0, config=s_cfg),
+                          render_whitted_multi(plain, sd, s_cam, sw, sh, 0, config=s_cfg))
+    if predicted is not None and predicted < MU_FULL_PLAIN_S:
+        t0 = time.perf_counter()
+        err = max(err, compare_whitted(f"multi {w}x{h}", out, render_whitted_multi(
+            plain, sd, cam, w, h, 0, config=cfg)))
+        log(f"[multi] plain-traced {w}x{h} frame in {time.perf_counter() - t0:.1f} s")
+    else:
+        log(f"[multi] {w}x{h} plain-traced frame not run: predicted "
+            f"{'(no timing)' if predicted is None else f'{predicted:.0f} s'} from its "
+            f"lists' plain time (limit {MU_FULL_PLAIN_S:.0f} s)")
+    del plain
+
+    exact = build_multi(mvs, exact_fallback=True)
+    k_exact = render_whitted_multi(exact, sd, s_cam, sw, sh, 0, config=s_cfg)
+    r = Renderer(s_cfg, device=device).render(sd, s_cam, frame=0)
+    compare_whitted_wavefront(f"multi {sw}x{sh}", k_exact, r)
+    del exact
+
+    # a drone moved and turned by with_transforms == an intersector built
+    # from the moved volume
+    rot2 = np.asarray(vols[1].rot) @ np.array([[0.8, 0.6, 0.0], [-0.6, 0.8, 0.0],
+                                              [0.0, 0.0, 1.0]], np.float32)
+    pos2 = np.asarray(vols[1].pos) + np.array([0.3, -0.2, 0.25], np.float32)
+    moved = multi_k.with_transforms([None, (rot2, pos2), None, None, None])
+    v1 = VoxelVolume(vols[1].grid.copy(), vols[1].palette, pos=pos2, rot=rot2)
+    fresh = MultiMegaIntersector([multi_k.vols[0],
+                                  MegaIntersector(mega.MegaVolume(v1, device),
+                                                  shadow_rounds=MU_SHADOW_ROUNDS, compact=True)]
+                                 + multi_k.vols[2:])
+    k_moved = render_whitted_multi(moved, sd, s_cam, sw, sh, 0, config=s_cfg)
+    err = max(err, compare_whitted(f"multi moved drone {sw}x{sh}", k_moved,
+                                   render_whitted_multi(fresh, sd, s_cam, sw, sh, 0,
+                                                        config=s_cfg)))
+    still = render_whitted_multi(multi_k, sd, s_cam, sw, sh, 0, config=s_cfg)
+    moved_px = int((k_moved["depth"] != still["depth"]).sum())
+    log(f"[multi] with_transforms moved drone 1 by (0.3, -0.2, 0.25) and turned it: "
+        f"{moved_px} of {sw * sh} depths changed; equal to a fresh intersector's frame")
+    require(moved_px > 0, "the moved drone changed no pixel")
+
+    res["edits"] = multi_edits(multi_k)
+    fresh = build_multi([mega.MegaVolume(VoxelVolume(v.grid.copy(), v.palette, pos=v.pos,
+                                                     rot=v.rot), device) for v in vols])
+    res["err"] = max(err, compare_whitted(
+        f"multi edited {sw}x{sh}",
+        render_whitted_multi(multi_k, sd, s_cam, sw, sh, 0, config=s_cfg),
+        render_whitted_multi(fresh, sd, s_cam, sw, sh, 0, config=s_cfg)))
+    if device == "cpu":
+        return res
+
+    # one camera: the compacted lists keep their sizes from frame to frame,
+    # so each count times the same work
+    def frame(_i):
+        return render_whitted_multi(multi_k, sd, cam, w, h, 0, config=cfg)
+
+    frame(0)
+    counts = MU_COUNTS
+    ms, agree = agreeing_frame_ms("multi", frame, counts, MU_ROUNDS)
+    before = mega.KERNEL_LAUNCHES["mega_rays"]
+    wall, busy, kernels = device_busy(lambda: [frame(i) for i in range(3)])
+    per_frame = (mega.KERNEL_LAUNCHES["mega_rays"] - before) / 3
+    b2_dev = kernel_device_ms(lambda: frame(0), 1, "mega_rays_kernel")
+    # each per-volume slab mask is one masked_apply gather: one host sync
+    slab_masks = []
+    slab_mask = multi_k._slab_mask
+    multi_k._slab_mask = lambda v, o, d: slab_masks.append(1) or slab_mask(v, o, d)
+    syncs = count_host_syncs(lambda: frame(0))
+    del multi_k._slab_mask
+    idle = None if busy is None else 1.0 - busy / wall
+    log(f"[multi] timing {w}x{h} (after the edits): {ms[0]:.4f} ms/frame over "
+        f"{counts[0]} frames, {ms[1]:.4f} over {counts[1]} (means of {MU_ROUNDS} rounds "
+        f"each, in turns), {'agree' if agree else 'do NOT agree'} within {SLOPE_RTOL:.0%}; profiled 3 "
+        f"frames: wall {wall / 3:.4f} ms/frame, device busy "
+        f"{'not measured' if busy is None else f'{busy / 3:.4f} ms/frame'} in "
+        f"{kernels / 3:.1f} kernels/frame, idle share "
+        f"{'not measured' if idle is None else f'{idle:.4f}'}; mega_rays {per_frame:.1f} "
+        f"launches a frame, device time per launch "
+        f"{'not measured' if b2_dev is None else f'{b2_dev:.4f} ms'}; {syncs} host syncs a "
+        f"frame (sync debug mode), {len(slab_masks)} of them the volumes' slab masks")
+    require(agree, f"multi frame times disagree: {ms}")
+    res.update(ms=ms[1], wall=wall / 3, busy=None if busy is None else busy / 3,
+               kernels=kernels / 3, idle=idle, b2_per_frame=per_frame, b2_dev_ms=b2_dev,
+               host_syncs=syncs, slab_mask_syncs=len(slab_masks))
+    return res
+
+
+def phase_game():
+    """[game] game_demo's main for 30 frames at 1280x768 on the card: the
+    laser must carve voxels.  Returns the demo's JSON."""
+    import tempfile
+    from voxel_tracer_tpu_torch.examples import game_demo
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "game.json")
+        t0 = time.perf_counter()
+        rc = game_demo.main(["--frames", "30", "--size", f"{MU_W}x{MU_H}", "--json", path])
+        with open(path) as f:
+            res = json.load(f)
+    log(f"[game] game_demo: 30 frames at {MU_W}x{MU_H} in {time.perf_counter() - t0:.1f} s, "
+        f"exit code {rc}, {res['voxels_carved']} voxels carved, score {res['score']}")
+    require(rc == 0 and res["voxels_carved"] > 0, "game_demo carved no voxel")
+    return res
+
+
+def palette_varied(vol, seed=13):
+    """A copy of ``vol`` whose solid voxels carry seeded material ids
+    1..255 (the bench grid holds one id): every palette row the surface
+    path's gather and its backward touch is a different row."""
+    from voxel_tracer_tpu_torch.models.volume import VoxelVolume
+    ids = np.random.RandomState(seed).randint(1, 256, vol.grid.shape).astype(np.uint8)
+    return VoxelVolume(np.where(vol.grid != 0, ids, 0).astype(np.uint8), vol.palette,
+                       pos=vol.pos, vpu=vol.vpu)
+
+
+def surface_grad(tag, mv, cam, size, pal0, tgt):
+    """render_lambert_surface_mega's colour and palette gradient with the
+    kernels and with render_lambert_mega_plain; fails unless the hits and
+    materials are equal, the colour within SF_COLOR_ATOL and the gradient
+    within SF_GRAD_RTOL x max|g|.  Returns (kernel output, gradient, launches
+    of the kernel run counted from 0, colour |d|, gradient |d| / max|g|)."""
+    from voxel_tracer_tpu_torch.ops import diff_surface
+    from voxel_tracer_tpu_torch.ops.cuda import mega
+
+    def color_and_grad(**kw):
+        pal = pal0.clone().requires_grad_(True)
+        out = diff_surface.render_lambert_surface_mega(pal, mv, cam, size, size, **kw)
+        loss = torch.mean((out["color"] - tgt) ** 2)
+        (g,) = torch.autograd.grad(loss, pal)
+        return out, g
+
+    mega.reset_launch_counts()
+    out, g = color_and_grad()
+    sync(pal0.device)
+    launches = dict(mega.KERNEL_LAUNCHES)
+    p_out, p_g = color_and_grad(lambert_fn=mega.render_lambert_mega_plain)
+    d_col = _maxabs(out["color"].detach() - p_out["color"].detach())
+    d_g = _maxabs(g - p_g) / float(p_g.abs().max())
+    require(bool(torch.equal(out["hit"], p_out["hit"])) and bool(torch.equal(out["mat"],
+                                                                             p_out["mat"])),
+            f"{tag}: hits differ from the plain version")
+    require(d_col <= SF_COLOR_ATOL, f"{tag}: colour differs by {d_col}")
+    require(d_g <= SF_GRAD_RTOL, f"{tag}: gradient differs by {d_g} x max|g|")
+    return out, g, launches, d_col, d_g
+
+
+def surface_fit(mv, cam, size, target, steps):
+    """``steps`` Adam steps of palette_fit_loss_mega from a grey palette:
+    (losses, ms a step over all but the first on the host clock, profiled
+    (wall ms, busy ms or None, kernels) a step or None on the CPU)."""
+    from voxel_tracer_tpu_torch.ops import diff_surface
+    dev = target.device
+    pal = torch.full((256, 3), 0.5, device=dev, requires_grad=True)
+    opt = torch.optim.Adam([pal], lr=0.05)
+
+    def step():
+        opt.zero_grad()
+        loss = diff_surface.palette_fit_loss_mega(pal, mv, cam, size, size, target)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    losses = [step()]                       # the first step, untimed
+    sync(dev)
+    t0 = time.perf_counter()
+    losses += [step() for _ in range(steps - 1)]
+    sync(dev)
+    ms_step = (time.perf_counter() - t0) / (steps - 1) * 1e3
+    prof = None
+    if dev.type != "cpu":
+        wall, busy, kernels = device_busy(lambda: [step() for _ in range(3)])
+        prof = (wall / 3, None if busy is None else busy / 3, kernels / 3)
+    return [float(v) for v in losses], ms_step, prof
+
+
+def phase_surface(vol, device="cuda", size=SF_W, steps=SF_STEPS):
+    """[surface] render_lambert_surface_mega on the bench scene at 512x512
+    (BASELINE config 2): colour and palette gradient on the kernels equal
+    the same computation on render_lambert_mega_plain, on the bench grid
+    (one material) and on a palette-varied copy (`palette_varied`);
+    agreement with the wavefront render_lambert_surface on pixels both hit;
+    a palette fit with Adam on each."""
+    from voxel_tracer_tpu_torch.models.camera import rays_for_image
+    from voxel_tracer_tpu_torch.models.scene import Scene
+    from voxel_tracer_tpu_torch.models.skydome import SkyDome
+    from voxel_tracer_tpu_torch.ops import diff_surface
+    from voxel_tracer_tpu_torch.ops.cuda import mega
+    mv = mega.MegaVolume(vol, device)
+    mv_v = mega.MegaVolume(palette_varied(vol), device)
+    cam = bench_camera(0.0, 1.0)
+    n = size * size
+    rng = np.random.RandomState(12)
+    pal0 = torch.from_numpy(rng.rand(256, 3).astype(np.float32)).to(device)
+    tgt = torch.from_numpy(rng.rand(n, 3).astype(np.float32)).to(device)
+
+    # the main path: the bench grid's colour and gradient, counts from 0
+    out, g, launches, d_col, d_g = surface_grad("surface", mv, cam, size, pal0, tgt)
+    out_v, g_v, _l, d_col_v, d_g_v = surface_grad("surface varied", mv_v, cam, size, pal0,
+                                                  tgt)
+    mats = int((g.abs().sum(1) > 0).sum())
+    mats_v = int((g_v.abs().sum(1) > 0).sum())
+    require(mats_v >= SF_MIN_MATERIALS, f"surface varied: {mats_v} materials with a gradient")
+
+    # the wavefront surface path on the same scene and palette
+    sd = Scene(volumes=[vol], skydome=SkyDome.procedural(64, 32)).data(device)
+    o, d = rays_for_image(cam, size, size, device=device)
+    with torch.no_grad():
+        wf = diff_surface.render_lambert_surface(pal0, sd, o, d)
+    both = out["hit"] & wf["hit"] & (out["mat"] == wf["mat"])
+    dw = (out["color"].detach() - wf["color"]).abs().amax(-1)[both]
+    share = float((dw <= SF_WAVEFRONT_ATOL).float().mean())
+    hit_diff = int((out["hit"] != wf["hit"]).sum())
+    log(f"[surface] render_lambert_surface_mega {size}x{size}, bench scene: launches "
+        f"{launches}; vs render_lambert_mega_plain: colour max |d| {d_col:.3g}, palette "
+        f"gradient max |d| {d_g:.3g} x max|g| ({mats} materials with a gradient); "
+        f"palette-varied copy: colour max |d| {d_col_v:.3g}, gradient max |d| {d_g_v:.3g} "
+        f"x max|g| ({mats_v} materials with a gradient); vs the wavefront "
+        f"render_lambert_surface: {hit_diff} of {n} hit flags differ, {int(both.sum())} "
+        f"pixels hit with one material, {share:.5f} of them within {SF_WAVEFRONT_ATOL} "
+        f"(max |d| {float(dw.max()):.3g})")
+    require(float(out["hit"].float().mean()) > 0.1, "surface: few hits")
+    require(share >= SF_WAVEFRONT_SHARE, f"surface vs wavefront: {share} within tolerance")
+    require(hit_diff <= n // 1000, f"surface vs wavefront: {hit_diff} hit flags differ")
+
+    b1 = None
+    if device != "cpu":
+        from voxel_tracer_tpu_torch.models.scene import SUN_DIR
+        cam_p = mega.mega_camera(mv, cam, SUN_DIR, size, size)
+        kw = dict(width=size, height=size, sky_mode="none", shading="raw")
+        _rgba, _t, aux = mega.render_mega_tiles(cam_p, mv.tables, **kw)
+        steps_b1 = int(((aux >> mega.AUX_STEPS_SHIFT) & 0x7ffff).sum())
+        _nb, bnd = mega_bound(n, 12, mv.tables, steps_b1, True)
+        b1 = time_kernel(f"surface B1 {size}x{size}",
+                         lambda: mega.render_mega_tiles(cam_p, mv.tables, **kw),
+                         lambda: mega.render_mega_tiles_plain(cam_p, mv.tables, **kw),
+                         (16, 64), "mega_camera_kernel", n, bnd)
+
+    fits = {}
+    for name, m, o_ in (("bench", mv, out), ("varied", mv_v, out_v)):
+        losses, ms_step, prof = surface_fit(m, cam, size, o_["color"].detach(), steps)
+        fits[name] = dict(loss0=losses[0], loss1=losses[-1], ms_step=ms_step,
+                          busy=None if prof is None else prof[1],
+                          kernels=None if prof is None else prof[2])
+        log(f"[surface] {name} grid: {steps} Adam steps of palette_fit_loss_mega (lr "
+            f"0.05): loss {losses[0]:.5g} -> {losses[-1]:.5g}; {ms_step:.3f} ms a step "
+            f"over the last {steps - 1} (host clock, synchronized)"
+            + ("" if prof is None else
+               f"; profiled 3 steps: wall {prof[0]:.3f} ms a step, device busy "
+               f"{'not measured' if prof[1] is None else f'{prof[1]:.3f} ms'} in "
+               f"{prof[2]:.1f} kernels a step"))
+        require(losses[-1] < losses[0], f"surface {name}: the palette fit did not lower "
+                                        "the loss")
+    fb, fv = fits["bench"], fits["varied"]
+    return dict(launches=launches, err_color=max(d_col, d_col_v), err_grad=max(d_g, d_g_v),
+                materials_varied=mats_v, wavefront_share=share, wavefront_hit_diff=hit_diff,
+                ms_step=fb["ms_step"], loss0=fb["loss0"], loss1=fb["loss1"], b1=b1,
+                step_busy_ms=fb["busy"], step_kernels=fb["kernels"],
+                ms_step_varied=fv["ms_step"], step_busy_ms_varied=fv["busy"])
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1466,11 +2017,19 @@ def main():
     ind = phase_indep(mv, o_rand, d_rand)
     new_times = phase_new_timing(kr, ind, mv, o_rand, d_rand)
     wh = phase_whitted()
+    mu = phase_multi()
+    game = phase_game()
+    surf = phase_surface(vol)
 
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(smi)
     src = "voxel_tracer_tpu_torch/csrc/mega.cu"
     isrc = "voxel_tracer_tpu_torch/csrc/diffint.cu"
+
+    def row(t):
+        return dict(ms=t["ms"], differential_ms=t["diff_ms"], device_ms=t["dev_ms"],
+                    plain_ms=t["plain_ms"], bound_ms=t["bound"][0], bound_by=t["bound"][1])
+
     # launches: the main path's 1280x768 frame, counted from 0
     whitted = dict(launches=wh["launches"]["mega_rays"],
                    camera_launches=wh["launches"]["mega_camera"],
@@ -1480,14 +2039,48 @@ def main():
                    frame_differential_ms=wh["diff_ms"],
                    frame_device_busy_ms=wh["busy"], kernels_per_frame=wh["kernels"],
                    idle_share=wh["idle"], max_abs_err=wh["err"],
-                   bench_suite_launches_per_frame=wh["expected"] - 1)
+                   bench_suite_launches_per_frame=wh["expected"] - 1,
+                   lists=wh["lists"]["lists"], lists_rays=wh["lists"]["rays"],
+                   lists_ms=wh["lists"]["ms"], lists_device_ms=wh["lists"]["dev_total_ms"],
+                   lists_plain_ms=wh["lists"]["plain_ms"],
+                   lists_bound_ms=wh["lists"]["bound"][0],
+                   lists_bound_by=wh["lists"]["bound"][1])
+    # launches: the default scene's 1280x768 frame, counted from 0
+    multi = dict(launches=mu["launches"]["mega_rays"],
+                 window_launches_per_frame=mu["b2_per_frame"], device_ms=mu["b2_dev_ms"],
+                 frame_ms=mu["ms"], frame_device_busy_ms=mu["busy"],
+                 kernels_per_frame=mu["kernels"], idle_share=mu["idle"],
+                 host_syncs_per_frame=mu["host_syncs"],
+                 slab_mask_syncs_per_frame=mu["slab_mask_syncs"], max_abs_err=mu["err"],
+                 lists=mu["lists"]["lists"], lists_rays=mu["lists"]["rays"],
+                 lists_ms=mu["lists"]["ms"], lists_device_ms=mu["lists"]["dev_total_ms"],
+                 lists_plain_ms=mu["lists"]["plain_ms"],
+                 lists_bound_ms=mu["lists"]["bound"][0],
+                 lists_bound_by=mu["lists"]["bound"][1],
+                 us_per_edit=mu["edits"]["us_per_edit"],
+                 us_per_refresh=mu["edits"]["us_refresh"],
+                 game=dict((k, game.get(k)) for k in (
+                     "wall_fps", "render_ms_per_frame", "sim_ms_per_frame", "voxels_carved",
+                     "score", "kernels_per_frame", "b2_launches_per_frame",
+                     "host_syncs_per_frame", "idle_share")))
+    surface = dict(launches=surf["launches"]["mega_camera"],
+                   shadow_launches=surf["launches"]["mega_rays"],
+                   max_abs_err=surf["err_color"], grad_err_rel=surf["err_grad"],
+                   wavefront_share=surf["wavefront_share"], ms_per_step=surf["ms_step"],
+                   step_device_busy_ms=surf["step_busy_ms"],
+                   step_kernels=surf["step_kernels"],
+                   materials_varied=surf["materials_varied"],
+                   ms_per_step_varied=surf["ms_step_varied"],
+                   step_device_busy_ms_varied=surf["step_busy_ms_varied"],
+                   loss_first=surf["loss0"], loss_last=surf["loss1"], **row(surf["b1"]))
     kernels = [
         dict(name="mega_camera", route="cuda", source=src,
              replaces="voxel_tracer_tpu/ops/pallas/mega.py:2536",
              launches=launches["mega_camera"], max_abs_err=err_cam,
              ms=times["flat kernel"], differential_ms=times["flat kernel differential"],
              device_ms=times["flat kernel device"], plain_ms=times["flat plain"],
-             bound_ms=cam_bound[0], bound_by=cam_bound[1], library_ms=None),
+             bound_ms=cam_bound[0], bound_by=cam_bound[1], library_ms=None,
+             surface=surface),
         dict(name="mega_rays", route="cuda", source=src,
              replaces="voxel_tracer_tpu/ops/pallas/mega.py:2810",
              launches=launches["mega_rays"], max_abs_err=err_rays,
@@ -1497,7 +2090,7 @@ def main():
              lit_shadow_rays=dict(ms=shadow["ms"], differential_ms=shadow["diff_ms"],
                                   device_ms=shadow["dev_ms"], plain_ms=shadow["plain_ms"],
                                   bound_ms=shadow["bound"][0], bound_by=shadow["bound"][1]),
-             whitted=whitted)]
+             whitted=whitted, multi=multi)]
     for name, mode, line, err in (
             ("integrate_fwd", "fwd", 511, max(train["err_fwd"], diffint_res["err_fwd"])),
             ("integrate_bwd", "bwd", 544, max(train["err_bwd"], diffint_res["err_bwd"]))):
@@ -1512,10 +2105,6 @@ def main():
             diff_lambert_512=dict(ms=t_dl["ms"], differential_ms=t_dl["diff_ms"],
                                   device_ms=t_dl["dev_ms"], bound_ms=t_dl["bound"][0],
                                   dup_warp_step_share=diffint_res["dup"])))
-    def row(t):
-        return dict(ms=t["ms"], differential_ms=t["diff_ms"], device_ms=t["dev_ms"],
-                    plain_ms=t["plain_ms"], bound_ms=t["bound"][0], bound_by=t["bound"][1])
-
     for name, src_name, line, launches_n, err, t, extra in (
             ("coherent", "coherent", "coherent.py:444", kr["launches"], kr["err"],
              new_times["coherent primary"], {}),

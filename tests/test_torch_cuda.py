@@ -604,3 +604,91 @@ def test_lambert_mega_prev_accu_kernel_matches_plain(cuda):
         for f in ("irradiance", "accu"):
             assert float((k[f] - p[f]).abs().max()) <= 1e-5, f
         accu, planes = k["accu"], cam.planes
+
+
+def test_set_voxel_tables_on_the_card(cuda):
+    """O(1) edits of the device tables (full and inverted) against a
+    repack on the card, bit 31 of a word and of the bitmap included."""
+    from voxel_tracer_tpu_torch.ops.cuda.whitted import MegaIntersector
+    g = np.zeros((20, 28, 36), np.uint8)
+    g[2:18, 3:20, 4:30] = 4
+    g[5:9, 5:9, 5:9] = 40
+    vol = VoxelVolume(g, vpu=20.0)
+    isect = MegaIntersector(mega.MegaVolume(vol, cuda))
+    rng = np.random.RandomState(3)
+    for _ in range(300):
+        isect.set_voxel(int(rng.randint(36)), int(rng.randint(28)), int(rng.randint(20)),
+                        int(rng.choice([0, 4, 40, 12])))
+    for z in range(8, 16):                         # brick 31 = (bx, by, bz) = (1, 2, 1)...
+        for y in range(16, 24):
+            for x in range(8, 16):
+                isect.set_voxel(x, y, z, 0)
+    isect.set_voxel(15, 19, 8, 41)                 # ...voxel index 31 of it
+    torch.cuda.synchronize()
+    fresh = MegaIntersector(mega.MegaVolume(VoxelVolume(vol.grid.copy(), vol.palette), cuda))
+    pairs = [(isect.full_tables, fresh.full_tables)]
+    pairs += [(isect.inv_tables[i], fresh.inv_tables[i]) for i in fresh.glass_ids]
+    for a, b in pairs:
+        for f in ("bocc", "bitmap", "occw", "matb", "grid", "brick_occ"):
+            assert torch.equal(getattr(a, f), getattr(b, f)), f
+    assert torch.equal(isect.grid_dda, fresh.grid_dda)
+
+
+def test_multi_frame_kernel_equals_plain(cuda):
+    """The default scene's frame on B2 (five volumes, drones turned, one
+    laser capsule) vs the same frame traced by B2's plain version, at
+    128x96: bit for bit, field for field."""
+    from voxel_tracer_tpu_torch.game.enemy import _yaw_matrix
+    from voxel_tracer_tpu_torch.models.camera import Camera
+    from voxel_tracer_tpu_torch.ops.cuda.multi import (MultiMegaIntersector, make_drone_scene,
+                                                       render_whitted_multi)
+    from voxel_tracer_tpu_torch.ops.cuda.whitted import MegaIntersector
+    from voxel_tracer_tpu_torch.renderer import RenderConfig
+    vols, scene = make_drone_scene(asset_dir=None)
+    for i, v in enumerate(vols[1:]):
+        v.set_rotation(_yaw_matrix(0.4 + 0.9 * i))
+    scene.add_capsule((2.6, 2.9, -2.2), tuple(vols[2].pos), 0.02)
+    sd = scene.data(cuda)
+    mvs = [mega.MegaVolume(v, cuda) for v in vols]
+    w, h = 128, 96
+    cfg = RenderConfig(width=w, height=h, shading="full", max_bounces=2, glass_reflections=2,
+                       compact=True)
+    cam = Camera.create((5.0, 2.8, 2.5), (1.0, 0.8, -1.5), w / h)
+
+    def frame(**kw):
+        m = MultiMegaIntersector([MegaIntersector(mv, shadow_rounds=2, compact=True, **kw)
+                                  for mv in mvs])
+        return render_whitted_multi(m, sd, cam, w, h, 3, config=cfg)
+
+    before = mega.KERNEL_LAUNCHES["mega_rays"]
+    k = frame()
+    assert mega.KERNEL_LAUNCHES["mega_rays"] > before + 10
+    p = frame(trace_fn=mega.trace_rays_plain)
+    torch.cuda.synchronize()
+    for f in k:
+        assert torch.equal(k[f], p[f]), f
+    mats = k["material"]
+    assert bool(((mats >= 1) & (mats <= 8)).any()) and bool(((mats >= 17) & (mats <= 48)).any())
+
+
+def test_ray_kernel_zero_direction_rays(cuda):
+    """Zero directions (refract's total internal reflection hands them to
+    the tracer; the default scene's frame traces some) enter the slab test
+    at t = inf and stop at a cell with t = inf: a miss whose axis word is
+    the entry axis's, as in the plain version; +-0 components, origins
+    inside and around the grid."""
+    g = np.zeros((16, 16, 16), np.uint8)
+    g[4:12, 6:10, 4:12] = 17
+    tb = mega.pack_tables(g, np.ones((256, 3), np.float32), 20.0, cuda)
+    rng = np.random.RandomState(4)
+    n = 4096
+    o = rng.uniform(-1.0, 1.8, (n, 3)).astype(np.float32)
+    d = np.where(rng.rand(n, 3) < 0.5, -0.0, 0.0).astype(np.float32)
+    o_t, d_t = torch.from_numpy(o).to(cuda), torch.from_numpy(d).to(cuda)
+    k = mega.trace_rays(o_t, d_t, tb, fetch_mat=True)
+    p = mega.trace_rays_plain(o_t, d_t, tb, fetch_mat=True)
+    torch.cuda.synchronize()
+    for f in ("t", "mat", "ax", "steps", "resolved"):
+        assert torch.equal(k[f], p[f]), f
+    # rays starting in a solid voxel hit at t = 0; others stop at t = inf
+    assert bool(((k["t"] >= mega.BIG) & (k["mat"] != 0)).any())

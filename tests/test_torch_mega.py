@@ -202,35 +202,13 @@ def test_bench_shaped_hier3_frame():
 
 
 def test_port_imports_no_jax():
-    code = ("import sys\n"
-            "import voxel_tracer_tpu_torch\n"
-            "import voxel_tracer_tpu_torch.convert\n"
-            "import voxel_tracer_tpu_torch.ops.cuda.mega\n"
-            "import voxel_tracer_tpu_torch.ops.cuda.diffint\n"
-            "import voxel_tracer_tpu_torch.ops.cuda.coherent\n"
-            "import voxel_tracer_tpu_torch.ops.cuda.integrate\n"
-            "import voxel_tracer_tpu_torch.ops.cuda.renderer_fast\n"
-            "import voxel_tracer_tpu_torch.ops.cuda.indep\n"
-            "import voxel_tracer_tpu_torch.models.skydome\n"
-            "import voxel_tracer_tpu_torch.utils.profiling\n"
-            "import voxel_tracer_tpu_torch.ops.diff\n"
-            "import voxel_tracer_tpu_torch.trainer\n"
-            "import voxel_tracer_tpu_torch.utils.checkpoint\n"
-            "import voxel_tracer_tpu_torch.utils.logging\n"
-            "import voxel_tracer_tpu_torch.examples.inverse_render\n"
-            "import voxel_tracer_tpu_torch.renderer\n"
-            "import voxel_tracer_tpu_torch.models.scene\n"
-            "import voxel_tracer_tpu_torch.models.volume\n"
-            "import voxel_tracer_tpu_torch.models.camera\n"
-            "import voxel_tracer_tpu_torch.ops.prims\n"
-            "import voxel_tracer_tpu_torch.ops.dda\n"
-            "import voxel_tracer_tpu_torch.ops.composite\n"
-            "import voxel_tracer_tpu_torch.ops.compact\n"
-            "import voxel_tracer_tpu_torch.ops.noise\n"
-            "import voxel_tracer_tpu_torch.ops.shading\n"
-            "import voxel_tracer_tpu_torch.ops.reproject\n"
-            "import voxel_tracer_tpu_torch.ops.tonemap\n"
-            "import voxel_tracer_tpu_torch.ops.cuda.whitted\n"
+    """Every module of the port imports without jax or the JAX package."""
+    code = ("import pkgutil, sys, importlib\n"
+            "import voxel_tracer_tpu_torch as pkg\n"
+            "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
+            "for name in names:\n"
+            "    importlib.import_module(name)\n"
+            "assert len(names) > 40, names\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'voxel_tracer_tpu')]\n"
             "assert not bad, bad\n")

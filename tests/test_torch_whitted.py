@@ -130,18 +130,21 @@ def test_whitted_renderer_state_machine(setup):
 
 
 def test_intersector_tables_follow_edits(setup):
-    """set_voxel re-packs the full and the inverted tables; table_state /
-    with_table_state swap them on a copy."""
-    mv = mega.MegaVolume(VoxelVolume(setup["mv"].volume.grid.copy(),
-                                     palette=setup["mv"].volume.palette), device="cpu")
-    isect = MegaIntersector(mv)
+    """set_voxel edits the full and the inverted tables in place, so a
+    table_state taken before the edit sees it; with_table_state swaps
+    another state in on a copy."""
+    def fresh():
+        return mega.MegaVolume(VoxelVolume(setup["mv"].volume.grid.copy(),
+                                           palette=setup["mv"].volume.palette), device="cpu")
+    isect = MegaIntersector(fresh())
     state = isect.table_state()
     assert isect.glass_ids == [3]
     isect.set_voxel(20, 10, 5, 3)
     assert int(isect.full_tables.grid[5, 10, 20]) == 3
     assert int(isect.inv_tables[3].grid[5, 10, 20]) == 0           # glass: open
     assert int(isect.inv_tables[3].grid[5, 10, 21]) == 256          # air: stops
-    old = isect.with_table_state(state)
+    assert state[0] is isect.full_tables and int(state[0].grid[5, 10, 20]) == 3
+    old = isect.with_table_state(MegaIntersector(fresh()).table_state())
     assert int(old.full_tables.grid[5, 10, 20]) == 0 and old is not isect
     assert int(isect.full_tables.grid[5, 10, 20]) == 3
 

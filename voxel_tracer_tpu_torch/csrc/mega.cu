@@ -188,7 +188,11 @@ __device__ __forceinline__ Hit trace_ray(const float o[3], const float d[3],
           const bool hpos = ha == 0 ? px : (ha == 1 ? py : pz);
           h.t = bet + ft / v.vpu;
           h.mat = fetch_mat ? (int)__ldg(&v.matb[(size_t)b * 512 + bit]) : 0;
-          h.ax = ha * 2 + (hpos ? 1 : 0);
+          // a zero direction (refract's total internal reflection) enters
+          // the slab at t = inf and stops at a cell with t = inf or NaN:
+          // the output calls that a miss, which keeps the entry axis, as
+          // the plain version does
+          h.ax = h.t < BIG_F32 ? ha * 2 + (hpos ? 1 : 0) : entry_axis * 2;
           h.steps = steps;
           return h;
         }
