@@ -40,14 +40,28 @@ them:
   traversal on B2; the same frame traced by B2's plain version, the
   wavefront `Renderer`, a drone moved by `with_transforms`, O(1) table
   edits against a repack, frame time and host syncs; then game_demo's
-  loop for 30 frames (the laser must carve voxels);
+  loop for 14 frames (the laser must carve voxels);
 - the differentiable surface path: `render_lambert_surface_mega` on the
   bench scene at 512x512 (B1 + B2 under autograd) against the same
   computation on the plain versions and against the wavefront
   `render_lambert_surface`, and 20 Adam steps of its palette fit.
+- the parallel layer at inverse_128_32views' width on the wavefront
+  march: `Trainer.fit` on one device and under an NCCL world of one
+  (`make_train_step`); the worker (`python -m
+  voxel_tracer_tpu_torch.parallel.worker`) as two processes on the one
+  card over gloo: the ray-sharded step, overlap_slabs 4 against 1, the
+  grid-sharded step (each rank a 64x128x128 slab) against the
+  ray-sharded one, the grid-sharded trace of a 128^3 volume at
+  1280x768, and `sharded_render` of the glass box at 320x192 against the
+  unsharded frame (two ranks on one card measure no interconnect);
+- the `render_vox` example on a .vox file of the glass-box stand-in at
+  640x384: flat, lambert and full with --fast (B1; B1 + B2; B1 + B2),
+  each against the same frame through the kernels' plain versions and
+  its hit mask against the wavefront frame's.
 
 Each main path runs with the launch counts set to 0 just before it and
-read just after.  It prints one line per phase, then the card's name and
+read just after.  It prints one line per check, the seconds each phase
+took (`[phases]`), then the card's name and
 power limit as nvidia-smi reports them, then
 
     {"kernels": [{"name", "route", "source", "replaces", "launches",
@@ -72,7 +86,8 @@ ms and idle share, and its ray lists replayed: `lists_ms`,
 rays, the bitmap, and the occupancy words and material bytes the list can
 touch, `list_bound_bytes`) and in the default scene's frame (`multi`: the
 same, host syncs a frame, us per O(1) edit, and game_demo's numbers under
-`game`); B1 its numbers on the surface path (`surface`: launches, colour
+`game`); B1 and B2 their `render_vox` launches and kernel-vs-plain error
+(`render_vox`); B1 its numbers on the surface path (`surface`: launches, colour
 and gradient against the plain versions on the bench grid and a
 palette-varied copy, ms per Adam step on each); B6 and B7
 `dup_warp_step_share` (share of warp-steps in which
@@ -87,6 +102,7 @@ the repository.
 Run from the repository root:  python3 chip_smoke.py
 """
 
+import functools
 import json
 import math
 import os
@@ -157,6 +173,22 @@ def bench_camera(theta, aspect):
     return Camera.create((px, 1.4, pz), (0.0, 0.0, 0.0), aspect)
 
 
+PHASE_S = {}   # seconds spent in each phase function, summed over its calls
+
+
+def timed_phase(fn):
+    """Adds the wall time of each call of ``fn`` to PHASE_S[fn's name]."""
+    @functools.wraps(fn)
+    def run(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kw)
+        finally:
+            name = fn.__name__[len("phase_"):]
+            PHASE_S[name] = PHASE_S.get(name, 0.0) + time.perf_counter() - t0
+    return run
+
+
 def require(cond, what):
     if not cond:
         raise AssertionError(what)
@@ -225,6 +257,7 @@ def compare_frames(tag, k, p):
     return dt
 
 
+@timed_phase
 def phase_build():
     from voxel_tracer_tpu_torch.ops.cuda import _build
     t0 = time.perf_counter()
@@ -238,6 +271,7 @@ def phase_build():
         f"sources compiled in {dt:.1f} s into {_build.BUILD_DIR}")
 
 
+@timed_phase
 def phase_main_path(mv):
     """The user-facing path, with every launch counter at 0 before it."""
     from voxel_tracer_tpu_torch.ops.cuda import mega
@@ -273,6 +307,7 @@ def phase_main_path(mv):
     return launches, int(flat["steps"].sum())
 
 
+@timed_phase
 def phase_small_reference():
     """Kernel on the card vs the plain version on the CPU (which the CPU
     tests hold against the JAX package) on a small scene."""
@@ -345,6 +380,7 @@ def mega_bound(n, per_ray_bytes, tb, steps, camera):
     return nbytes, bound(nbytes, ops)
 
 
+@timed_phase
 def phase_trace_rays(tag, mv, o_t, d_t, fetch_mat):
     """[trace_rays ...] B2 on one ray list: held against its plain
     version, timed, bounded; DDA steps a second from the device time."""
@@ -374,6 +410,7 @@ def lit_shadow_rays(mv, cam):
     return lists[0]
 
 
+@timed_phase
 def phase_budget():
     """[budget] B2 on the long sparse volume of `profiling.budget_scene`:
     65,536 rays, most of which run out of the 256-step budget; at 4096
@@ -398,6 +435,7 @@ def phase_budget():
     return err
 
 
+@timed_phase
 def phase_large_grid():
     """[large grid] B1 on a 256^3 noise volume (32,768 bricks, a 1024-word
     bitmap) against the plain version, and its device time."""
@@ -418,6 +456,7 @@ def phase_large_grid():
     return err
 
 
+@timed_phase
 def phase_flat(tag, mv, cam):
     from voxel_tracer_tpu_torch.ops.cuda import mega
     cam_p = mega.mega_camera(mv, cam, SUN, W, H)
@@ -427,27 +466,41 @@ def phase_flat(tag, mv, cam):
     return compare_frames(tag, k, p)
 
 
+FRAME_TOL = {"image": LSB, "depth": T_ATOL, "irradiance": T_ATOL}   # others: equal
+
+
+def compare_frame_fields(tag, k, p):
+    """A flat or lambert frame dict (render_mega's, render_lambert_mega's
+    or render_vox's) vs the same frame through the plain versions: hit
+    masks equal, image within LSB (8-bit), depth (on the hits) and
+    irradiance within T_ATOL, every other field equal."""
+    hk, hp = k["depth"] < 1e29, p["depth"] < 1e29
+    flips = int((hk != hp).sum())
+    both = hk & hp
+    diffs = {}
+    for f in k:
+        a, b = (k[f][both], p[f][both]) if f == "depth" else (k[f], p[f])
+        d = float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+        diffs[f] = d * 255 if f == "image" and a.is_floating_point() else d
+    log(f"[{tag}] kernel vs plain: hit-mask mismatches {flips} (budget "
+        f"{HIT_MISMATCH_BUDGET}), max |d| per field {diffs} (image in LSB)")
+    require(flips <= HIT_MISMATCH_BUDGET, f"{tag}: {flips} hit-mask mismatches")
+    for f, d in diffs.items():
+        require(d <= FRAME_TOL.get(f, 0.0), f"{tag}: {f} differs by {d}")
+    return diffs["depth"]
+
+
+@timed_phase
 def phase_lit(mv):
     from voxel_tracer_tpu_torch.ops.cuda import mega
     cam = bench_camera(0.0, W / H)
     k = mega.render_lambert_mega(mv, cam, W, H, sun_dir=SUN)
     p = mega.render_lambert_mega_plain(mv, cam, W, H, sun_dir=SUN)
     torch.cuda.synchronize()
-    hk, hp = k["depth"] < mega.BIG, p["depth"] < mega.BIG
-    flips = int((hk != hp).sum())
-    both = hk & hp
-    lsb = int((k["image"].int() - p["image"].int()).abs().max())
-    dt = float((k["depth"][both] - p["depth"][both]).abs().max())
-    dirr = float((k["irradiance"] - p["irradiance"]).abs().max())
-    eq = {f: bool(torch.equal(k[f], p[f])) for f in ("normal", "material", "steps")}
-    log(f"[lit frame] render_lambert_mega {W}x{H}: hit-mask mismatches {flips}, "
-        f"image {lsb} LSB, depth {dt:.3g}, irradiance {dirr:.3g}, equal {eq}")
-    require(flips <= HIT_MISMATCH_BUDGET, f"lit frame: {flips} hit-mask mismatches")
-    require(lsb <= LSB and dt <= T_ATOL and dirr <= T_ATOL, "lit frame differs")
-    require(all(eq.values()), f"lit frame fields differ: {eq}")
-    return dt
+    return compare_frame_fields(f"lit frame {W}x{H}", k, p)
 
 
+@timed_phase
 def phase_timing(mv):
     """Flat and lit frames over orbit cameras, serialized on one stream,
     timed with CUDA events at two frame counts each: the camera kernel
@@ -505,26 +558,14 @@ def phase_timing(mv):
 # Training slice: the integrate kernels B6 / B7 and Trainer.fit
 # ---------------------------------------------------------------------------
 
-def blob_field(g, seed, peak, scale):
-    """bench_suite.py's sparse blob: a Gaussian with exact zeros outside
-    (~15 % of voxels occupied), random density inside, random albedo."""
-    rng = np.random.RandomState(seed)
-    zz, yy, xx = np.meshgrid(*[np.linspace(0, 1, g)] * 3, indexing="ij")
-    r2 = (xx - 0.5) ** 2 + (yy - 0.5) ** 2 + (zz - 0.5) ** 2
-    blob = peak * np.exp(-r2 * 60.0)
-    sigma = np.where(blob > 0.05, rng.rand(g, g, g) * blob * scale, 0.0)
-    albedo = rng.rand(g, g, g, 3)
-    return (torch.tensor(sigma, dtype=torch.float32, device="cuda"),
-            torch.tensor(albedo, dtype=torch.float32, device="cuda"))
-
-
 def diff_scene():
     """diff_lambert_512 (bench_suite.py:183-210) made with numpy: the 64^3
     blob and 512x512 camera rays in 32x32-pixel tile order, taken as
     volume-local rays, with random targets."""
     from voxel_tracer_tpu_torch.models.camera import Camera, rays_for_image
     from voxel_tracer_tpu_torch.ops.cuda import diffint
-    sigma, albedo = blob_field(DIFF_G, 0, 40.0, 0.25)
+    from voxel_tracer_tpu_torch.utils.profiling import blob_field
+    sigma, albedo = (torch.from_numpy(x).cuda() for x in blob_field(DIFF_G, 0, 40.0, 0.25))
     cam = Camera.create((2.0, 1.4, -2.4), (0.0, 0.0, 0.0), 1.0)
     o, d = (diffint.tile_raster(x, DIFF_W, DIFF_W).contiguous()
             for x in rays_for_image(cam, DIFF_W, DIFF_W))
@@ -632,12 +673,14 @@ def integrate_pair(tag, sigma, albedo, o, d, vpu, target, counts):
     return out
 
 
+@timed_phase
 def phase_diffint(scene):
     """[diffint fwd] + [diffint bwd]: the diff_lambert_512 scene."""
     return integrate_pair("diffint", scene["sigma"], scene["albedo"], scene["o"],
                           scene["d"], scene["vpu"], scene["target"], (20, 80))
 
 
+@timed_phase
 def phase_finite_difference(scene):
     """Central difference of sum(color) at the voxel of largest |d/d sigma|,
     through render_density_mega on the card (launches B6 and B7)."""
@@ -666,6 +709,7 @@ def phase_finite_difference(scene):
             "finite difference disagrees with the kernel gradient")
 
 
+@timed_phase
 def phase_slabs(scene):
     """[slabs] render_density_slabs(n_slabs=2) vs render_density_mega on the
     card: forward and gradients of mean((color - target)^2)."""
@@ -690,25 +734,6 @@ def phase_slabs(scene):
     require(e_grad <= SLAB_GRAD_RTOL, "slab gradients differ")
 
 
-def train_views():
-    """inverse_128_32views (bench_suite.py:480-506): 32 ring views of
-    64x64 pixels around the 128^3 grid, rays in tile order (numpy)."""
-    from voxel_tracer_tpu_torch.models.camera import Camera, rays_for_image
-    from voxel_tracer_tpu_torch.ops.cuda import diffint
-    center = TRAIN_G / (2 * TRAIN_VPU)
-    os_, ds_ = [], []
-    for v in range(TRAIN_VIEWS):
-        th = 2 * np.pi * v / TRAIN_VIEWS
-        r = 2.2 * TRAIN_G / TRAIN_VPU / 4
-        pos = (center + r * np.cos(th), center * 1.35, center + r * np.sin(th))
-        cam = Camera.create(pos, (center,) * 3, 1.0)
-        o, d = rays_for_image(cam, TRAIN_PX, TRAIN_PX, device="cpu")
-        os_.append(diffint.tile_raster(o.numpy(), TRAIN_PX, TRAIN_PX))
-        ds_.append(diffint.tile_raster(d.numpy(), TRAIN_PX, TRAIN_PX))
-    return (np.ascontiguousarray(np.concatenate(os_)),
-            np.ascontiguousarray(np.concatenate(ds_)))
-
-
 def kernel_device_ms(fn, reps, name):
     """Mean device time of the kernels whose name contains ``name`` over
     ``reps`` calls of fn(), from torch.profiler's kernel spans (None if
@@ -731,15 +756,18 @@ def device_busy(fn):
     return busy(fn)
 
 
+@timed_phase
 def phase_train():
     """[train] The training main path: Trainer.fit, kernel backend, at the
     width of inverse_128_32views, on targets rendered by the kernel forward
     of a known field.  Launch counts at 0 just before, read just after."""
     from voxel_tracer_tpu_torch.ops.cuda import diffint
     from voxel_tracer_tpu_torch.trainer import TrainConfig, Trainer
-    o, d = train_views()
+    from voxel_tracer_tpu_torch.utils.profiling import blob_field, ring_views
+    # inverse_128_32views (bench_suite.py:480-506): 32 ring views of 64x64
+    o, d = ring_views(TRAIN_G, TRAIN_VIEWS, TRAIN_PX, TRAIN_VPU)
     n = o.shape[0]
-    true_s, true_a = blob_field(TRAIN_G, 1, 40.0, 0.25)
+    true_s, true_a = (torch.from_numpy(x).cuda() for x in blob_field(TRAIN_G, 1, 40.0, 0.25))
     with torch.no_grad():
         c = diffint.render_density_mega(true_s, true_a, torch.from_numpy(o).cuda(),
                                         torch.from_numpy(d).cuda(), TRAIN_VPU,
@@ -887,6 +915,7 @@ def time_kernel(tag, fn, plain_fn, counts, span, n, bnd):
     return dict(ms=ms[1], diff_ms=slope, dev_ms=dev_ms, plain_ms=plain_ms, bound=bnd)
 
 
+@timed_phase
 def phase_kernel_renderer():
     """[kernel renderer] The 512-crate profiling scene baked into one 256^3
     grid; render_lambert_fast then render_flat_fast at WxH with the launch
@@ -948,6 +977,7 @@ def phase_kernel_renderer():
     return out
 
 
+@timed_phase
 def phase_two_volumes():
     """[two volumes] Two unbaked procedural crates through
     render_lambert_fast (one B5 launch per volume and pass, min-combined)
@@ -980,6 +1010,7 @@ def phase_two_volumes():
     require(lsb <= LSB, f"two-volume image differs by {lsb} LSB")
 
 
+@timed_phase
 def phase_indep(mv, o_t, d_t):
     """[indep] render_indep flat and lambert at WxH on the bench scene and
     trace_rays_indep on the random rays, launch counts at 0 just before;
@@ -1073,6 +1104,7 @@ def indep_extra_inputs(cam):
                 budget_stats={})
 
 
+@timed_phase
 def phase_new_timing(kr, ind, mv, o_t, d_t):
     """[timing] B5 on the kernel renderer's ray lists, B3 on the bench frame,
     B4 on the random rays; the lit frame of the kernel renderer end to end
@@ -1161,54 +1193,13 @@ WH_BOUNCES, WH_GLASS_REFL, WH_SHADOW_ROUNDS = 3, 2, 2
 # plane of the grid's far z face, where grazing rays split between float
 # pipelines), looking through the grid's far corner into the scene
 WH_THETA = 0.05
-WH_ROUNDS = 5                   # frame timing: the two counts in turns
+WH_ROUNDS = 3                   # frame timing: the two counts in turns
 # the kernel frame vs the port's wavefront Renderer: the CPU tests' pinned
 # budgets (tests/test_torch_renderer.py), as shares of the frame's pixels
 WH_COLOR_MISMATCH_SHARE = 130 / 3072    # pixels over 5 % relative error
 WH_MEAN_REL_ERR = 0.015
 WH_DEPTH_ATOL = 5e-3
 WH_HIT_COUNT_SHARE = 4 / 3072
-
-
-def whitted_scene():
-    """A procedural stand-in for bench_suite.py:381-437's glass-box and
-    drones scene: a 128^3 grid at vpu 20 (a diffuse floor, id 30; a hollow
-    glass box with 2-voxel walls, id 4, around a diffuse pillar, id 40; a
-    mirror plate, id 12) and four 16^3 drone-sized diffuse solids at
-    pos (i, 2.0, 0), baked into one volume; a procedural sky and one sphere
-    light.  Returns (merged volume, host Scene)."""
-    from voxel_tracer_tpu_torch.models.scene import Scene
-    from voxel_tracer_tpu_torch.models.skydome import SkyDome
-    from voxel_tracer_tpu_torch.models.volume import VoxelVolume
-    from voxel_tracer_tpu_torch.ops.cuda.renderer_fast import bake_aligned_scene
-    n = 128
-    g = np.zeros((n, n, n), np.uint8)                  # (z, y, x), y up
-    g[:, 48:56, :] = 30                                # floor slab
-    g[30:70, 56:96, 30:70] = 4                         # glass box
-    g[32:68, 56:94, 32:68] = 0                         # hollow, open to the floor
-    g[44:56, 56:84, 44:56] = 40                        # pillar inside
-    g[20:70, 56:110, 90:94] = 12                       # mirror plate
-    rng = np.random.RandomState(0)
-    pal = (rng.rand(256, 3) * 0.8 + 0.1).astype(np.float32)
-    # grid corner at (-2.4, -3.2, -4.9): the drones land at grid y 96..112
-    base = VoxelVolume(g, palette=pal, pos=(0.8, 0.0, -1.7), vpu=20.0)
-    z, y, x = np.meshgrid(*[np.arange(16)] * 3, indexing="ij")
-    body = ((x - 7.5) ** 2 / 64 + (y - 7.5) ** 2 / 16 + (z - 7.5) ** 2 / 64) <= 1.0
-    drones = [VoxelVolume(np.where(body, 17 + 8 * i, 0).astype(np.uint8), palette=pal,
-                          pos=(float(i), 2.0, 0.0), vpu=20.0) for i in range(4)]
-    merged = bake_aligned_scene([base] + drones)
-    scene = Scene(volumes=[merged], skydome=SkyDome.procedural(64, 32))
-    scene.add_light((2.0, 3.5, -1.5), 0.15, (1.0, 0.9, 0.8), 40.0)
-    return merged, scene
-
-
-def whitted_camera(merged, theta, width, height):
-    """bench_suite.py:452-457's orbit camera."""
-    from voxel_tracer_tpu_torch.models.camera import Camera
-    c0 = np.asarray(merged.pos) + np.asarray(merged.size) * 0.5
-    pos = (c0[0] + 3.2 * math.cos(theta * 10.0), c0[1] + 1.2,
-           c0[2] + 3.2 * math.sin(theta * 10.0))
-    return Camera.create(pos, tuple(c0), width / height)
 
 
 def whitted_config(width, height, **kw):
@@ -1281,6 +1272,7 @@ def compare_whitted_wavefront(tag, k, r):
     require(dhit <= WH_HIT_COUNT_SHARE * n, f"{tag}: hit counts differ by {dhit}")
 
 
+@timed_phase
 def phase_whitted(device="cuda", size=(WH_W, WH_H), small=(WH_SMALL_W, WH_SMALL_H),
                   counts=(4, 12)):
     """[whitted] The full-material frame: render_whitted_mega on B1 / B2 at
@@ -1292,14 +1284,16 @@ def phase_whitted(device="cuda", size=(WH_W, WH_H), small=(WH_SMALL_W, WH_SMALL_
     from voxel_tracer_tpu_torch.ops.cuda.whitted import (MegaIntersector, WhittedMegaRenderer,
                                                          render_whitted_mega)
     from voxel_tracer_tpu_torch.renderer import Renderer
+    from voxel_tracer_tpu_torch.utils.profiling import glass_box_camera, glass_box_scene
     t0 = time.perf_counter()
-    merged, scene = whitted_scene()
+    # a procedural stand-in for bench_suite.py:381-437's glass-box scene
+    merged, scene = glass_box_scene(128)
     sd = scene.data(device)
     mv = mega.MegaVolume(merged, device)
     isect = MegaIntersector(mv, shadow_rounds=WH_SHADOW_ROUNDS, compact=True)
     w, h = size
     cfg = whitted_config(w, h)
-    cam = whitted_camera(merged, WH_THETA, w, h)
+    cam = glass_box_camera(merged, WH_THETA, w, h)
     log(f"[whitted] scene: {merged.grid.shape[::-1]} grid, glass ids {isect.glass_ids}, "
         f"{sd.lights.origin.shape[0]} sphere light; built in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -1331,7 +1325,7 @@ def phase_whitted(device="cuda", size=(WH_W, WH_H), small=(WH_SMALL_W, WH_SMALL_
 
     sw, sh = small
     s_cfg = whitted_config(sw, sh)
-    s_cam = whitted_camera(merged, WH_THETA, sw, sh)
+    s_cam = glass_box_camera(merged, WH_THETA, sw, sh)
     k = render_whitted_mega(isect, sd, s_cam, sw, sh, 0, config=s_cfg)
     p = render_whitted_mega(plain, sd, s_cam, sw, sh, 0, config=s_cfg)
     err = max(err, compare_whitted(f"whitted {sw}x{sh}", k, p))
@@ -1347,7 +1341,7 @@ def phase_whitted(device="cuda", size=(WH_W, WH_H), small=(WH_SMALL_W, WH_SMALL_
 
     acc = WhittedMegaRenderer(isect, sd, whitted_config(w, h, accumulate=True))
     for i in range(4):
-        a_out = acc.render(whitted_camera(merged, WH_THETA + 0.002 * i, w, h))
+        a_out = acc.render(glass_box_camera(merged, WH_THETA + 0.002 * i, w, h))
     require(acc.frame == 4 and a_out["accu"].shape == (h, w, 4), "accumulated frames")
     for f in ("image", "accu", "irradiance"):
         require(bool(torch.isfinite(a_out[f]).all()), f"accumulated frame: non-finite {f}")
@@ -1361,7 +1355,7 @@ def phase_whitted(device="cuda", size=(WH_W, WH_H), small=(WH_SMALL_W, WH_SMALL_
                                         trace_fn=cap), sd, cam, w, h, 0, config=cfg)
     res["lists"] = replay_lists("whitted", cap.lists)
 
-    cams = [whitted_camera(merged, WH_THETA + 0.001 * i, w, h) for i in range(16)]
+    cams = [glass_box_camera(merged, WH_THETA + 0.001 * i, w, h) for i in range(16)]
 
     def frame(i):
         return render_whitted_mega(isect, sd, cams[i % 16], w, h, 0, config=cfg)
@@ -1401,6 +1395,7 @@ def phase_whitted(device="cuda", size=(WH_W, WH_H), small=(WH_SMALL_W, WH_SMALL_
     return res
 
 
+@timed_phase
 def phase_lambert_accumulate(mv):
     """[lit accumulate] render_lambert_mega with prev_accu on the bench
     frame: identical deterministic frames make the 95 % history blend a
@@ -1463,7 +1458,8 @@ MU_BOUNCES, MU_SHADOW_ROUNDS = 2, 2    # game_demo: --bounces 2, shadow_rounds 2
 MU_FULL_PLAIN_S = 15.0                 # hold the 1280x768 frame to the plain one when
                                        # its predicted time is under this
 MU_EDITS = 200
-MU_COUNTS, MU_ROUNDS = (1, 3), 15      # frame timing: 60 frames, the counts in turns
+MU_COUNTS, MU_ROUNDS = (1, 3), 8       # frame timing: 32 frames, the counts in turns
+GAME_FRAMES = 14                       # game_demo fires every other frame
 MU_TARGET, MU_OFFSET = (1.0, 0.8, -1.5), (4.0, 2.0, 4.0)   # multi_camera's orbit
 SF_W = 512                             # BASELINE config 2: 512^2 diff. Lambertian
 SF_STEPS = 20
@@ -1663,6 +1659,7 @@ def multi_edits(multi_k):
                 edits=len(edits) + len(solid) + 64)
 
 
+@timed_phase
 def phase_multi(device="cuda", size=(MU_W, MU_H), small=(MU_SMALL_W, MU_SMALL_H)):
     """[multi] render_whitted_multi on the reference's default scene (five
     separate volumes, drones turned) with game_demo's config at 1280x768
@@ -1797,19 +1794,21 @@ def phase_multi(device="cuda", size=(MU_W, MU_H), small=(MU_SMALL_W, MU_SMALL_H)
     return res
 
 
+@timed_phase
 def phase_game():
-    """[game] game_demo's main for 30 frames at 1280x768 on the card: the
+    """[game] game_demo's main for GAME_FRAMES frames at 1280x768 on the card: the
     laser must carve voxels.  Returns the demo's JSON."""
     import tempfile
     from voxel_tracer_tpu_torch.examples import game_demo
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "game.json")
         t0 = time.perf_counter()
-        rc = game_demo.main(["--frames", "30", "--size", f"{MU_W}x{MU_H}", "--json", path])
+        rc = game_demo.main(["--frames", str(GAME_FRAMES), "--size", f"{MU_W}x{MU_H}",
+                             "--json", path])
         with open(path) as f:
             res = json.load(f)
-    log(f"[game] game_demo: 30 frames at {MU_W}x{MU_H} in {time.perf_counter() - t0:.1f} s, "
-        f"exit code {rc}, {res['voxels_carved']} voxels carved, score {res['score']}")
+    log(f"[game] game_demo: {GAME_FRAMES} frames at {MU_W}x{MU_H} in "
+        f"{time.perf_counter() - t0:.1f} s, exit code {rc}, {res['voxels_carved']} voxels carved, score {res['score']}")
     require(rc == 0 and res["voxels_carved"] > 0, "game_demo carved no voxel")
     return res
 
@@ -1884,6 +1883,7 @@ def surface_fit(mv, cam, size, target, steps):
     return [float(v) for v in losses], ms_step, prof
 
 
+@timed_phase
 def phase_surface(vol, device="cuda", size=SF_W, steps=SF_STEPS):
     """[surface] render_lambert_surface_mega on the bench scene at 512x512
     (BASELINE config 2): colour and palette gradient on the kernels equal
@@ -1969,6 +1969,215 @@ def phase_surface(vol, device="cuda", size=SF_W, steps=SF_STEPS):
                 ms_step_varied=fv["ms_step"], step_busy_ms_varied=fv["busy"])
 
 
+# ---------------------------------------------------------------------------
+# Sixth slice: the parallel layer (parallel/ on torch.distributed) and the
+# render_vox example
+# ---------------------------------------------------------------------------
+
+PAR_STEPS = 3
+PAR_RTOL_ONE = 1e-6        # the Trainer under an NCCL world of one vs one device
+PAR_RTOL_TWO = 1e-5        # two ranks vs one: the same compute (test_distributed.py:94)
+PAR_SLAB_RTOL = 2e-4       # overlap_slabs 4 vs 1, grid- vs ray-sharded (test_grid_train.py:111)
+PAR_FULL_STEPS = 384       # > 382, the most cells a ray crosses in 128^3: no ray runs out
+PAR_CHILD_TIMEOUT_S = 420  # a rank that outlives this is killed and fails the phase
+PAR_TRACE_MISMATCH_BUDGET = 2   # test_grid_shard.py:59's pinned budget
+PAR_TRACE_T_ATOL = 2e-3
+RV_SIZE = (640, 384)
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(world, modes, backend, device, problem, timeout=PAR_CHILD_TIMEOUT_S):
+    """The worker on ``world`` fresh processes (a CUDA context does not
+    survive a fork, and this one holds one); rank 0's JSON line.  A rank
+    that exits non-zero or outlives ``timeout`` fails the phase."""
+    init = f"tcp://127.0.0.1:{free_port()}"
+    cmd = [sys.executable, "-m", "voxel_tracer_tpu_torch.parallel.worker", "--world",
+           str(world), "--init-method", init, "--backend", backend, "--device", device,
+           "--problem", problem, "--mode", ",".join(modes), "--timeout", str(timeout)]
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    procs = [subprocess.Popen(cmd + ["--rank", str(r)], cwd=ROOT, env=env, text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, (_, err)) in enumerate(zip(procs, outs)):
+        require(p.returncode == 0, f"rank {r} of {world} exited {p.returncode}:\n{err[-3000:]}")
+    return json.loads(outs[0][0].strip().splitlines()[-1])
+
+
+def _close(tag, got, ref, rtol):
+    err = float(np.max(np.abs(np.asarray(got) - np.asarray(ref)) / np.abs(np.asarray(ref))))
+    log(f"[parallel] {tag}: losses {[f'{v:.8g}' for v in got]} vs "
+        f"{[f'{v:.8g}' for v in ref]}, max rel diff {err:.3g} (rtol {rtol})")
+    require(err <= rtol, f"{tag}: losses differ by {err} (rtol {rtol})")
+    return err
+
+
+def _ms(res):
+    """Mean ms/step after the first (warm-up) step."""
+    return float(np.mean(res["ms_per_step"][1:]))
+
+
+@timed_phase
+def phase_parallel():
+    """[parallel] The parallel layer at the width of inverse_128_32views
+    (128^3 sigma + albedo, 32 ring views of 64x64 = 131,072 rays a step,
+    vpu 20, Adam lr 1e-2, 192 march steps) on the wavefront march:
+    Trainer.fit on one device, then under an NCCL world of one (the
+    ray-sharded make_train_step); two processes on cuda:0 over gloo: the
+    ray-sharded step, overlap_slabs 4 against 1 and the grid-sharded step
+    (GRID 2) against the ray-sharded one, the grid-sharded trace, and
+    sharded_render against the unsharded frame."""
+    import torch.distributed as dist
+    from voxel_tracer_tpu_torch.parallel import distributed, worker
+    problem = worker.train_problem("inverse_128")
+    one = worker.run_trainer(problem, "cuda", PAR_STEPS)
+    require(one["world"] == 1, "the one-device Trainer ran on a mesh")
+    distributed.initialize(init_method=f"tcp://127.0.0.1:{free_port()}", num_processes=1,
+                           process_id=0, backend="nccl", device="cuda:0")
+    try:
+        require(dist.get_backend() == "nccl", f"backend {dist.get_backend()}, not nccl")
+        nccl_tr = worker.run_trainer(problem, "cuda", PAR_STEPS, profile=device_busy)
+        nccl = worker.run_train("replicated", problem, "cuda", PAR_STEPS)
+    finally:
+        distributed.shutdown()
+    require(nccl_tr["world"] == 1, "the NCCL Trainer did not run on the mesh")
+    _close("Trainer under an NCCL world of one vs one device", nccl_tr["losses"],
+           one["losses"], PAR_RTOL_ONE)
+    wall, busy, kernels = nccl_tr["profile"]
+    idle = "not measured" if busy is None else f"{1.0 - busy / wall:.4f}"
+    log(f"[parallel] NCCL world of one on {torch.cuda.get_device_name(0)}: Trainer.fit "
+        f"{_ms(nccl_tr):.3f} ms/step (one device, no group: {_ms(one):.3f}); "
+        f"make_train_step {_ms(nccl):.3f} ms/step, {nccl['rays_per_rank']} rays, "
+        f"{nccl['march_steps']} march steps; profiled step: wall {wall:.3f} ms, device "
+        f"busy {'not measured' if busy is None else f'{busy:.3f} ms'} in {kernels} "
+        f"kernels, idle share {idle}")
+
+    full = PAR_FULL_STEPS
+    modes = ("probe", "replicated", f"replicated:{full}", f"overlap:{full}", f"grid:{full}",
+             "trace:2", "render")
+    t0 = time.perf_counter()
+    two = spawn_ranks(2, modes, "gloo", "cuda:0", "inverse_128")
+    wall = time.perf_counter() - t0
+    m = two["modes"]
+    probe = m["probe"]
+    require(two["backend"] == "gloo" and two["world"] == 2 and two["device"] == "cuda:0",
+            f"world of two ran as {two['backend']}, {two['world']}, {two['device']}")
+    log(f"[parallel] gloo (not NCCL), two processes on cuda:0 ({wall:.1f} s with start-up): "
+        f"gloo on CUDA tensors: {probe}; the mesh passes them as they are, nothing is "
+        f"staged through the host")
+    require(all(r == "ok" for r in probe.values()),
+            f"gloo refuses CUDA tensors: {probe}; the mesh would need to stage them")
+    rep, rep_full = m["replicated"], m[f"replicated:{full}"]
+    _close("ray-sharded step, two ranks vs the NCCL world of one", rep["losses"],
+           nccl["losses"], PAR_RTOL_TWO)
+    _close(f"overlap_slabs 4 vs 1 at {full} march steps", m[f"overlap:{full}"]["losses"],
+           rep_full["losses"], PAR_SLAB_RTOL)
+    grid = m[f"grid:{full}"]
+    _close(f"grid-sharded (GRID 2) vs ray-sharded at {full} march steps", grid["losses"],
+           rep_full["losses"], PAR_SLAB_RTOL)
+    slab = [TRAIN_G // 2, TRAIN_G, TRAIN_G]
+    require(grid["slab_shapes"] == {"sigma": slab, "albedo": slab + [3]}
+            and grid["moment_shapes"] == {"sigma": [slab] * 2, "albedo": [slab + [3]] * 2},
+            f"grid ranks hold {grid['slab_shapes']}, moments {grid['moment_shapes']}")
+    log(f"[parallel] two ranks sharing one card (not a scaling figure): ray-sharded "
+        f"{_ms(rep):.3f} ms/step ({rep['rays_per_rank']} rays a rank, 192 march steps), "
+        f"{_ms(rep_full):.3f} at {full}; overlap_slabs 4 {_ms(m[f'overlap:{full}']):.3f}; "
+        f"grid-sharded {_ms(grid):.3f} (each rank's sigma, albedo and Adam moments "
+        f"{slab})")
+    tr = m["trace:2"]
+    log(f"[parallel] grid-sharded trace, 2 slabs of the 128^3 punched sphere, "
+        f"{tr['rays']} rays along +z: {tr['hits']} hits, {tr['mismatches']} hit mismatches "
+        f"vs replicated (budget {PAR_TRACE_MISMATCH_BUDGET}), t max |d| {tr['t_max_diff']:.3g}, "
+        f"material equal {tr['mat_equal']:.6f}, normal equal {tr['normal_equal']:.6f}; "
+        f"{tr['ms']:.1f} ms")
+    require(tr["mismatches"] <= PAR_TRACE_MISMATCH_BUDGET, f"trace: {tr['mismatches']} mismatches")
+    require(tr["t_max_diff"] <= PAR_TRACE_T_ATOL, f"trace: t differs by {tr['t_max_diff']}")
+    require(tr["mat_equal"] > 0.99 and tr["normal_equal"] > 0.99, "trace: fields differ")
+    rd = m["render"]
+    log(f"[parallel] sharded_render, glass box at {rd['size'][0]}x{rd['size'][1]}, full "
+        f"shading over two ranks: max |d| per field vs the unsharded frame "
+        f"{rd['max_abs_diff']}; hit fraction {rd['hit_fraction']:.4f}, glass "
+        f"{rd['glass_hits']} and mirror {rd['mirror_hits']} hits; {rd['ms']:.1f} ms")
+    require(all(v == 0.0 for v in rd["max_abs_diff"].values()),
+            f"sharded frame differs: {rd['max_abs_diff']}")
+    require(rd["glass_hits"] > 0 and rd["mirror_hits"] > 0, "glass and mirror not in view")
+    return dict(nccl_ms=_ms(nccl), trainer_ms=_ms(nccl_tr), one_ms=_ms(one),
+                gloo_ms=_ms(rep), probe=probe, trace_mismatches=tr["mismatches"],
+                step_wall_ms=wall, step_busy_ms=busy, step_kernels=kernels)
+
+
+@timed_phase
+def phase_render_vox():
+    """[render_vox] The example on a .vox file of the glass-box stand-in
+    (pillar, hollow glass box, mirror, floor, drones) at 640x384: flat,
+    lambert and full with --fast (B1; B1 + B2; B1 + B2), launch counts at
+    0 just before each and read just after; each frame held against the
+    same frame through the kernels' plain versions, and its hit mask
+    against the wavefront frame's (without --fast)."""
+    from voxel_tracer_tpu_torch.examples import render_vox
+    from voxel_tracer_tpu_torch.models.vox import grid_vox_bytes
+    from voxel_tracer_tpu_torch.ops.cuda import mega
+    from voxel_tracer_tpu_torch.utils.profiling import glass_box_scene
+    merged, _ = glass_box_scene(128)
+    out_dir = os.path.join(ROOT, "build", "render_vox")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "glass_box.vox")
+    with open(path, "wb") as f:
+        f.write(grid_vox_bytes(merged.grid, merged.palette))
+    w, h = RV_SIZE
+    cam = (4.5, 3.0, -7.5)
+    t0 = time.perf_counter()
+    ref = render_vox.render(path, w, h, "flat", cam_pos=cam)
+    ref_hit = ref["depth"] < 1e29
+    frac = float(ref_hit.float().mean())
+    log(f"[render_vox] {w}x{h}, wavefront Renderer, flat: hit fraction {frac:.4f}, "
+        f"{time.perf_counter() - t0:.2f} s")
+    require(bool(torch.isfinite(ref["image"]).all()), "wavefront frame: non-finite pixels")
+    require(0.05 < frac < 0.95, f"wavefront frame: hit fraction {frac}")
+    launches, err = {}, 0.0
+    for mode in ("flat", "lambert", "full"):
+        mega.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = render_vox.render(path, w, h, mode, fast=True, cam_pos=cam)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches[mode] = dict(mega.KERNEL_LAUNCHES)
+        hit = out["depth"] < 1e29
+        flips = int((hit != ref_hit).sum())
+        log(f"[render_vox] {mode} --fast: hit fraction {float(hit.float().mean()):.4f}, "
+            f"{flips} pixels' hit differs from the wavefront frame's (budget 0), launches "
+            f"{launches[mode]}, {dt:.2f} s")
+        require(bool(torch.isfinite(out["image"]).all()), f"{mode}: non-finite pixels")
+        require(flips == 0, f"{mode}: hit mask differs from the wavefront frame's")
+        require(launches[mode]["mega_camera"] > 0, f"{mode}: B1 was not launched")
+        require(mode == "flat" or launches[mode]["mega_rays"] > 0,
+                f"{mode}: B2 was not launched")
+        plain = render_vox.render(path, w, h, mode, fast=True, cam_pos=cam, plain=True)
+        tag = f"render_vox {mode} {w}x{h}"
+        err = max(err, compare_whitted(tag, out, plain) if mode == "full"
+                  else compare_frame_fields(tag, out, plain))
+    png = os.path.join(out_dir, "glass_box.png")
+    require(render_vox.main(["--vox", path, "--out", png, "--size", f"{w}x{h}", "--mode",
+                             "full", "--fast", "--cam", ",".join(map(str, cam))]) == 0,
+            "render_vox's command line failed")
+    res = {k: sum(v[k] for v in launches.values()) for k in ("mega_camera", "mega_rays")}
+    return dict(res, err=err)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2020,7 +2229,10 @@ def main():
     mu = phase_multi()
     game = phase_game()
     surf = phase_surface(vol)
+    par = phase_parallel()
+    rv = phase_render_vox()
 
+    log(f"[phases] seconds: {json.dumps({k: round(v, 1) for k, v in PHASE_S.items()})}")
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(smi)
     src = "voxel_tracer_tpu_torch/csrc/mega.cu"
@@ -2080,7 +2292,7 @@ def main():
              ms=times["flat kernel"], differential_ms=times["flat kernel differential"],
              device_ms=times["flat kernel device"], plain_ms=times["flat plain"],
              bound_ms=cam_bound[0], bound_by=cam_bound[1], library_ms=None,
-             surface=surface),
+             surface=surface, render_vox=dict(launches=rv["mega_camera"], max_abs_err=rv["err"])),
         dict(name="mega_rays", route="cuda", source=src,
              replaces="voxel_tracer_tpu/ops/pallas/mega.py:2810",
              launches=launches["mega_rays"], max_abs_err=err_rays,
@@ -2090,7 +2302,7 @@ def main():
              lit_shadow_rays=dict(ms=shadow["ms"], differential_ms=shadow["diff_ms"],
                                   device_ms=shadow["dev_ms"], plain_ms=shadow["plain_ms"],
                                   bound_ms=shadow["bound"][0], bound_by=shadow["bound"][1]),
-             whitted=whitted, multi=multi)]
+             whitted=whitted, multi=multi, render_vox=dict(launches=rv["mega_rays"], max_abs_err=rv["err"]))]
     for name, mode, line, err in (
             ("integrate_fwd", "fwd", 511, max(train["err_fwd"], diffint_res["err_fwd"])),
             ("integrate_bwd", "bwd", 544, max(train["err_bwd"], diffint_res["err_bwd"]))):

@@ -6,8 +6,6 @@ parameters allclose at atol 1e-6; grids, brick occupancy, .vox grids and
 palettes exactly equal; sky and tonemap within 1 LSB after RGB8.
 """
 
-import struct
-
 import numpy as np
 import pytest
 import torch
@@ -108,18 +106,6 @@ def test_volume_from_jax():
     assert tv.vpu == jv.vpu and tv.grid_size == jv.grid_size
 
 
-def _vox_bytes(size, voxels, rgba=None):
-    def chunk(cid, content, children=b""):
-        return cid + struct.pack("<ii", len(content), len(children)) + content + children
-
-    body = chunk(b"SIZE", struct.pack("<iii", *size))
-    body += chunk(b"XYZI", struct.pack("<i", len(voxels))
-                  + np.asarray(voxels, np.uint8).tobytes())
-    if rgba is not None:
-        body += chunk(b"RGBA", rgba.tobytes())
-    return b"VOX " + struct.pack("<i", 150) + chunk(b"MAIN", b"", body)
-
-
 @pytest.mark.parametrize("with_palette", [False, True])
 def test_parse_vox(with_palette, tmp_path):
     rng = np.random.RandomState(9)
@@ -127,7 +113,7 @@ def test_parse_vox(with_palette, tmp_path):
     xyz = np.stack([rng.randint(0, s, 30) for s in size], axis=1)
     voxels = np.concatenate([xyz, rng.randint(1, 256, (30, 1))], axis=1)
     rgba = rng.randint(0, 256, (256, 4)).astype(np.uint8) if with_palette else None
-    data = _vox_bytes(size, voxels, rgba)
+    data = tvox.vox_bytes(size, voxels, rgba)
     (jm,) = jvox.parse_vox(data)
     (tm,) = tvox.parse_vox(data)
     np.testing.assert_array_equal(tm.grid, jm.grid)

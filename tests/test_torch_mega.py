@@ -202,13 +202,20 @@ def test_bench_shaped_hier3_frame():
 
 
 def test_port_imports_no_jax():
-    """Every module of the port imports without jax or the JAX package."""
+    """Every module of the port, the parallel and host layers included,
+    imports without jax or the JAX package."""
     code = ("import pkgutil, sys, importlib\n"
             "import voxel_tracer_tpu_torch as pkg\n"
             "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
             "for name in names:\n"
             "    importlib.import_module(name)\n"
-            "assert len(names) > 40, names\n"
+            "assert len(names) > 60, names\n"
+            "need = ('parallel.mesh parallel.distributed parallel.sharding "
+            "parallel.grid_shard parallel.grid_train parallel.worker engine.pool "
+            "engine.gjk engine.sat engine.physics config ops.curves ops.denoise "
+            "ops.oracle_native utils.aov utils.debug_draw examples.render_vox').split()\n"
+            "missing = [m for m in need if pkg.__name__ + '.' + m not in names]\n"
+            "assert not missing, missing\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'voxel_tracer_tpu')]\n"
             "assert not bad, bad\n")

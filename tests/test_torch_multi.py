@@ -37,11 +37,10 @@ from voxel_tracer_tpu.ops import composite as jcomp
 
 from voxel_tracer_tpu_torch.convert import scene_from_jax, volume_from_jax
 from voxel_tracer_tpu_torch.models.volume import VoxelVolume
+from voxel_tracer_tpu_torch.models.vox import vox_bytes
 from voxel_tracer_tpu_torch.ops import composite
 from voxel_tracer_tpu_torch.ops.cuda import mega, multi
 from voxel_tracer_tpu_torch.ops.cuda.whitted import MegaIntersector
-
-from test_torch_foundations import _vox_bytes
 
 torch.set_num_threads(1)
 
@@ -332,8 +331,8 @@ def test_make_drone_scene_stand_ins_and_assets(tmp_path, monkeypatch):
     box = np.concatenate([rng.randint(0, 6, (40, 3)), rng.choice([16, 62, 30], (40, 1))], 1)
     drone = np.concatenate([rng.randint(0, 4, (20, 3)), np.full((20, 1), 77)], 1)
     os.makedirs(tmp_path / "testing")
-    (tmp_path / "testing" / "glass-box.vox").write_bytes(_vox_bytes((6, 6, 6), box))
-    (tmp_path / "enemy-drone.vox").write_bytes(_vox_bytes((4, 4, 4), drone))
+    (tmp_path / "testing" / "glass-box.vox").write_bytes(vox_bytes((6, 6, 6), box))
+    (tmp_path / "enemy-drone.vox").write_bytes(vox_bytes((4, 4, 4), drone))
     monkeypatch.setenv("VOXEL_TRACER_ASSET_DIR", str(tmp_path))
     vols, _ = multi.make_drone_scene()
     assert vols[0].grid.shape == (6, 6, 6) and tuple(vols[0].pos) == (0.0, 0.0, 0.0)

@@ -183,8 +183,10 @@ def trained_grid():
     kernel forward renders from its known field, and the grid after 25
     Trainer.fit steps."""
     from voxel_tracer_tpu_torch.trainer import TrainConfig, Trainer
-    o, d = cs.train_views()
-    true_s, true_a = cs.blob_field(cs.TRAIN_G, 1, 40.0, 0.25)
+    from voxel_tracer_tpu_torch.utils.profiling import blob_field, ring_views
+    o, d = ring_views(cs.TRAIN_G, cs.TRAIN_VIEWS, cs.TRAIN_PX, cs.TRAIN_VPU)
+    true_s, true_a = (torch.from_numpy(x).cuda()
+                      for x in blob_field(cs.TRAIN_G, 1, 40.0, 0.25))
     o_t, d_t = torch.from_numpy(o).cuda(), torch.from_numpy(d).cuda()
     with torch.no_grad():
         c = diffint.render_density_mega(true_s, true_a, o_t, d_t, cs.TRAIN_VPU,

@@ -117,3 +117,27 @@ def pyramid_project(planes: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     u = d[0] / (d[0] + d[1])
     v = d[2] / (d[2] + d[3])
     return torch.stack([u, v], dim=-1)
+
+
+def freecam_update(cam: Camera, move, look, dt: float, boost: bool = False):
+    """Headless freecam (camera.cpp:18-54 semantics, no GLFW).
+
+    move: (3,) strafe/up/forward in {-1, 0, 1}; look: (2,) yaw/pitch
+    deltas.  Returns (new Camera, forward depth delta): the delta feeds the
+    temporal reprojection's depth compensation (renderer.cpp:318)."""
+    move = torch.as_tensor(move, dtype=torch.float32)
+    look = torch.as_tensor(look, dtype=torch.float32)
+    speed = 1.5 * dt * (4.0 if boost else 1.0)
+    up_w = torch.tensor(UP, dtype=torch.float32)
+    ahead = m3.normalize(cam.target - cam.pos)
+    right = m3.normalize(m3.cross(up_w, ahead))
+    up = m3.normalize(m3.cross(ahead, right))
+
+    target = cam.target + 0.025 * dt * (right * look[0] - up * look[1])
+    ahead = m3.normalize(target - cam.pos)
+    right = m3.normalize(m3.cross(up_w, ahead))
+    up = m3.normalize(m3.cross(ahead, right))
+
+    pos = cam.pos + speed * (right * move[0] + up * move[1] + ahead * move[2])
+    depth_delta = speed * move[2]
+    return Camera.create(pos, pos + ahead), depth_delta

@@ -117,3 +117,32 @@ def load_vox(path: str, model_id: int = 0) -> VoxModel:
     with open(path, "rb") as f:
         models = parse_vox(f.read())
     return models[model_id]
+
+
+def vox_bytes(size, voxels, rgba=None) -> bytes:
+    """One model as .vox bytes, the chunks `parse_vox` reads: SIZE
+    ``size`` (vox x, y, z), XYZI ``voxels`` ((N, 4) x, y, z, colour
+    index) and, unless None, RGBA ``rgba`` ((256, 4) uint8, entry i the
+    colour of index i + 1)."""
+    def chunk(cid, content, children=b""):
+        return cid + struct.pack("<ii", len(content), len(children)) + content + children
+
+    body = chunk(b"SIZE", struct.pack("<iii", *size))
+    body += chunk(b"XYZI", struct.pack("<i", len(voxels))
+                  + np.asarray(voxels, np.uint8).tobytes())
+    if rgba is not None:
+        body += chunk(b"RGBA", np.asarray(rgba, np.uint8).tobytes())
+    return b"VOX " + struct.pack("<i", 150) + chunk(b"MAIN", b"", body)
+
+
+def grid_vox_bytes(grid: np.ndarray, palette: np.ndarray) -> bytes:
+    """The .vox bytes whose `load_vox` grid is ``grid`` ((Z, Y, X) uint8,
+    y up) and whose albedo is ``palette`` ((256, 3) float in [0, 1],
+    rounded to 8 bits; entry 0 unused)."""
+    gz, gy, gx = grid.shape
+    z, y, x = np.nonzero(grid)
+    # the inverse of parse_vox's remap: grid[z, y, x] = vox[x = z, y = gx - 1 - x, z = y]
+    voxels = np.stack([z, gx - 1 - x, y, grid[z, y, x]], axis=1)
+    rgba = np.full((256, 4), 255, np.uint8)
+    rgba[:255, :3] = np.round(np.asarray(palette)[1:, :3] * 255)
+    return vox_bytes((gz, gx, gy), voxels, rgba)

@@ -526,11 +526,27 @@ def render_mega(mv: MegaVolume, camera, width, height, *, sun_dir=None,
                 sun_scale=1.0, sky_mode="analytic", shading="flat",
                 ambient=0.2, sky_const=(0.0, 0.0, 0.0)):
     """Fully fused flat/lambert frame (RGB8 image + depth/mat/steps AOVs)."""
+    return _mega_frame(mv, camera, width, height, sun_dir, sun_scale,
+                       sky_mode, shading, ambient, sky_const,
+                       render_mega_tiles)
+
+
+def render_mega_plain(mv: MegaVolume, camera, width, height, *, sun_dir=None,
+                      sun_scale=1.0, sky_mode="analytic", shading="flat",
+                      ambient=0.2, sky_const=(0.0, 0.0, 0.0)):
+    """Plain PyTorch version of `render_mega`, on any device."""
+    return _mega_frame(mv, camera, width, height, sun_dir, sun_scale,
+                       sky_mode, shading, ambient, sky_const,
+                       render_mega_tiles_plain)
+
+
+def _mega_frame(mv, camera, width, height, sun_dir, sun_scale, sky_mode,
+                shading, ambient, sky_const, tiles_fn):
     sd = SUN_DIR if sun_dir is None else sun_dir
     cam_p = mega_camera(mv, camera, sd, width, height, sun_scale, sky_const)
-    rgba, t, aux = render_mega_tiles(cam_p, mv.tables, width=width,
-                                     height=height, sky_mode=sky_mode,
-                                     shading=shading, ambient=ambient)
+    rgba, t, aux = tiles_fn(cam_p, mv.tables, width=width, height=height,
+                            sky_mode=sky_mode, shading=shading,
+                            ambient=ambient)
     return dict(
         image=_unpack_rgb8(rgba).to(torch.uint8),
         depth=t,

@@ -269,7 +269,8 @@ def eval_glass_wavefront(scene, cur_o, cur_d, cur_hit, is_glass, config,
     return cont_o, cont_d, cont_w, emitted, alb_acc, irr_acc
 
 
-def shade_full(scene, origins, dirs, hit, frame, config, isect=composite):
+def shade_full(scene, origins, dirs, hit, frame, config, isect=composite,
+               ray_offset: int = 0):
     """Full Whitted-style wavefront shading (materials.cpp:15-48 analog).
 
     Mirror rays multiply the albedo throughput and continue
@@ -283,10 +284,13 @@ def shade_full(scene, origins, dirs, hit, frame, config, isect=composite):
     glass sub-loop, the continuation trace) on its own live subset
     (`ops/compact.masked_apply`); noise and seed streams key on each row's
     original ray index, so the results equal the uncompacted call's.
+    ``ray_offset`` is the global index of row 0: a ray shard
+    (`parallel.sharding.sharded_render`) draws the noise and seeds of the
+    unsharded frame's rays.
     Returns (albedo, irradiance), each (N, 3).
     """
     n = origins.shape[0]
-    full_idx = torch.arange(n, device=origins.device)
+    full_idx = torch.arange(n, device=origins.device) + ray_offset
     if not getattr(config, "compact", False):
         return _shade_full_body(scene, origins, dirs, hit, frame, config,
                                 isect, full_idx)
@@ -298,7 +302,7 @@ def shade_full(scene, origins, dirs, hit, frame, config, isect=composite):
             t=torch.where(lv, t_g, BIG_F32), mat=mat_g, normal=nrm_g,
             albedo=alb_g, steps=torch.zeros_like(mat_g), obj=obj_g)
         return _shade_full_body(scene, o_g, d_g, hit_g, frame, config,
-                                isect, idx)
+                                isect, idx + ray_offset)
 
     zeros3 = torch.zeros((n, 3), dtype=torch.float32, device=origins.device)
     return masked_apply(

@@ -113,14 +113,16 @@ _TONEMAPS = {"aces": tonemap.aces_approx, "reinhard": tonemap.reinhard,
 
 def render_rays(scene, origins, dirs, frame, *, config: RenderConfig,
                 prev_accu=None, prev_planes=None, depth_delta=0.0,
-                isect=composite, primary_hit=None):
+                isect=composite, primary_hit=None, ray_offset=0):
     """Render a ray wavefront (origins, dirs: (H*W, 3), row-major).
 
     ``isect`` swaps the traversal backend: any module or object with
     composite-compatible `intersect_scene` / `march_interior` /
     `is_occluded`.  ``primary_hit`` supplies a precomputed primary
     HitResult (e.g. from the camera kernel), so the primary intersect is
-    skipped."""
+    skipped.  ``ray_offset``: the global index of the first ray, when the
+    wavefront is a block of a larger frame's rays (full shading keys its
+    noise and shadow seeds on it)."""
     from voxel_tracer_tpu_torch.ops.shading import lambert_irradiance, shade_full
 
     w, h = config.width, config.height
@@ -141,7 +143,8 @@ def render_rays(scene, origins, dirs, frame, *, config: RenderConfig,
                                         isect=isect)
     else:
         albedo, irradiance = shade_full(
-            scene, origins, dirs, hit, frame, config, isect=isect)
+            scene, origins, dirs, hit, frame, config, isect=isect,
+            ray_offset=ray_offset)
         albedo = torch.where(missed[:, None], sky, albedo)
 
     irradiance = torch.where(missed[:, None], 1.0, torch.clamp(irradiance, min=0.0))

@@ -1,22 +1,25 @@
 """Inverse rendering: optimize a density/albedo grid from posed images.
 
 Counterpart of `voxel_tracer_tpu/trainer.py` (BASELINE.json config 5:
-optimize a 128^3 density + albedo grid from 32 posed target images), on
-one device and without a mesh; the multi-device layer waits for the port
-of `parallel/`.  Two backends, named for what runs the march:
+optimize a 128^3 density + albedo grid from 32 posed target images).  Two
+backends, named for what runs the march:
 
 - ``"wavefront"`` (the JAX package's ``"xla"``, accepted as an alias):
   `ops/diff.render_density`, the lock-step PyTorch march with its replay
-  backward;
+  backward, in `parallel.sharding.make_train_step` over a ray mesh: under
+  an initialized process group each rank trains on its contiguous block
+  of every batch and the gradients are averaged over the ranks;
 - ``"kernel"`` (the JAX package's ``"pallas"``, accepted as an alias):
   `ops/cuda/diffint.render_density_mega` on the integrate kernels B6/B7,
-  or `render_density_slabs` when ``n_slabs > 1``.  Batches are contiguous
+  or `render_density_slabs` when ``n_slabs > 1``, on one device (the JAX
+  kernel step never uses the mesh either).  Batches are contiguous
   1024-ray tiles, so datasets should be in `tile_order`.
 
 `torch.optim.Adam(lr)` takes the place of `optax.adam(lr)`: both add
 eps = 1e-8 to sqrt(v_hat), so their updates match.  `fit` draws batches
-with the JAX trainer's host sampler (`np.random.RandomState(0)`), so both
-packages train on the same rays.
+with the JAX trainer's host sampler (`np.random.RandomState(0)`), padded
+to a multiple of the ranks, so both packages, and every world size, train
+on the same rays.  Only rank 0 writes metrics and checkpoints.
 """
 
 from __future__ import annotations
@@ -30,6 +33,8 @@ import torch
 from voxel_tracer_tpu_torch.models.camera import Camera, rays_for_image
 from voxel_tracer_tpu_torch.ops import diff
 from voxel_tracer_tpu_torch.ops.cuda import diffint
+from voxel_tracer_tpu_torch.parallel import mesh as pmesh
+from voxel_tracer_tpu_torch.parallel.sharding import make_train_step
 from voxel_tracer_tpu_torch.utils.checkpoint import CheckpointManager
 from voxel_tracer_tpu_torch.utils.logging import MetricsLogger
 
@@ -95,8 +100,20 @@ def make_dataset(views, width: int, height: int, vpu: float, grid_size,
             np.concatenate(all_c))
 
 
+def draw_batch(rng, n: int, batch: int, backend: str):
+    """Indices of one global batch from the host sampler: contiguous
+    1024-ray tiles for the kernel backend, single rays otherwise."""
+    if backend == "kernel":
+        starts = rng.randint(0, max(n // TILE, 1), batch // TILE) * TILE
+        return (starts[:, None] + np.arange(TILE)[None, :]).ravel()
+    return rng.randint(0, n, batch)
+
+
 class Trainer:
-    def __init__(self, cfg: TrainConfig, device="cuda"):
+    """``mesh``: the ray mesh of the wavefront step; by default every rank
+    of the process group when one is initialized, else this one device."""
+
+    def __init__(self, cfg: TrainConfig, device="cuda", mesh=None):
         backend = BACKEND_ALIASES.get(cfg.backend, cfg.backend)
         if backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS} or their JAX "
@@ -105,29 +122,38 @@ class Trainer:
             cfg = dataclasses.replace(cfg, backend=backend)
         self.cfg = cfg
         self.device = torch.device(device)
+        self.mesh = mesh if mesh is not None else pmesh.make_ray_mesh(self.device)
+        if backend == "kernel" and self.mesh.size > 1:
+            raise ValueError(
+                f"the kernel backend trains on one device, not a mesh of "
+                f"{self.mesh.size} ranks; use backend='wavefront' to shard rays")
         self.params = {k: v.requires_grad_() for k, v in
                        init_params(cfg, self.device).items()}
         self.optimizer = torch.optim.Adam(
             [self.params[k] for k in PARAM_NAMES], lr=cfg.lr)
+        self.step_fn = (make_train_step(self.mesh, cfg.lr, cfg.vpu, cfg.march_steps)
+                        if backend == "wavefront" else self._kernel_step)
         self.step = 0
+        chief = self.mesh.coords[pmesh.RAYS] == 0
         self.ckpt = (CheckpointManager(cfg.checkpoint_dir)
-                     if cfg.checkpoint_dir else None)
+                     if cfg.checkpoint_dir and chief else None)
         self.metrics = (MetricsLogger(cfg.metrics_path)
-                        if cfg.metrics_path else None)
+                        if cfg.metrics_path and chief else None)
 
-    def _loss(self, o, d, c):
-        cfg, p = self.cfg, self.params
-        if cfg.backend == "wavefront":
-            out = diff.render_density(p["sigma"], p["albedo"], o, d, cfg.vpu,
-                                      cfg.march_steps)
-        elif cfg.n_slabs > 1:
+    def _kernel_step(self, params, opt, o, d, c):
+        cfg, p = self.cfg, params
+        if cfg.n_slabs > 1:
             out = diffint.render_density_slabs(
                 p["sigma"], p["albedo"], o, d, cfg.vpu, cfg.n_slabs,
                 t_eps=KERNEL_T_EPS)
         else:
             out = diffint.render_density_mega(
                 p["sigma"], p["albedo"], o, d, cfg.vpu, t_eps=KERNEL_T_EPS)
-        return torch.mean((out["color"] - c) ** 2)
+        loss = torch.mean((out["color"] - c) ** 2)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        return params, opt, loss.detach()
 
     # -- state --------------------------------------------------------------
 
@@ -178,28 +204,20 @@ class Trainer:
         """Run optimization steps until `cfg.steps` over a ray dataset
         (numpy arrays on the host).  Returns the logged losses."""
         cfg = self.cfg
-        batch = cfg.rays_per_batch
+        batch = pmesh.pad_to_multiple(cfg.rays_per_batch, self.mesh.size)
         n = origins.shape[0]
         rng = np.random.RandomState(0)
         losses = []
-        n_tiles = max(n // TILE, 1)
         while self.step < cfg.steps:
-            if cfg.backend == "kernel":
-                # contiguous 1024-ray tiles keep each warp's rays coherent
-                starts = rng.randint(0, n_tiles, batch // TILE) * TILE
-                idx = (starts[:, None] + np.arange(TILE)[None, :]).ravel()
-            else:
-                idx = rng.randint(0, n, batch)
+            # every rank draws the global batch and takes its own block
+            idx = pmesh.shard_rays(self.mesh, draw_batch(rng, n, batch, cfg.backend))
             o, d, c = (torch.as_tensor(np.asarray(a[idx], np.float32),
                                        device=self.device)
                        for a in (origins, dirs, targets))
-            loss = self._loss(o, d, c)
-            self.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-            self.optimizer.step()
+            _, _, loss = self.step_fn(self.params, self.optimizer, o, d, c)
             self.step += 1
             if self.step % log_every == 0:
-                value = float(loss.detach())
+                value = float(loss)
                 losses.append(value)
                 log_fn(f"step {self.step}: loss {value:.6f}")
                 if self.metrics is not None:

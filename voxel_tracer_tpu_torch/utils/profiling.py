@@ -7,6 +7,10 @@ same scene is built from the reference's crate assets when the
 environment variable VOXEL_TRACER_ASSET_DIR names a directory that holds
 them (`ASSET_DIR`) and from procedural crates otherwise, then baked
 into one 256^3 grid for the coherent kernel (`profiling_scene_merged`).
+The other benchmark scenes are built here too: the budget rays
+(`budget_scene`), the glass-box stand-in (`glass_box_scene`,
+`glass_box_camera`) and inverse_128_32views' blob and ring views
+(`blob_field`, `ring_views`).
 
 `trace()` records a `torch.profiler` trace of a code block (host and
 device timelines, exported as a Chrome trace) and `annotate()` names a
@@ -16,12 +20,13 @@ span inside it.
 from __future__ import annotations
 
 import contextlib
+import math
 import os
 import tempfile
 
 import numpy as np
 
-from voxel_tracer_tpu_torch.models.camera import Camera
+from voxel_tracer_tpu_torch.models.camera import Camera, rays_for_image
 from voxel_tracer_tpu_torch.models.volume import VoxelVolume
 from voxel_tracer_tpu_torch.models.vox import load_vox
 
@@ -148,3 +153,80 @@ def budget_scene(length: int = 4096, n_rays: int = 65536, seed: int = 0):
     d = np.stack([np.ones(n), slope[:, 0], slope[:, 1]], axis=1)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     return g, o.astype(np.float32), d.astype(np.float32), vpu
+
+
+def glass_box_scene(n: int = 128):
+    """A procedural stand-in for bench_suite.py:381-437's glass-box and
+    drones scene, every length scaled by n / 128 (vpu too, so the world
+    extent stays): an n^3 grid (a diffuse floor, id 30; a hollow glass box
+    with 2-voxel walls, id 4, around a diffuse pillar, id 40; a mirror
+    plate, id 12) and four drone-sized diffuse ellipsoids at pos
+    (i, 2.0, 0), baked into one volume; a procedural sky and one sphere
+    light.  Returns (merged volume, host Scene)."""
+    from voxel_tracer_tpu_torch.models.scene import Scene
+    from voxel_tracer_tpu_torch.models.skydome import SkyDome
+    from voxel_tracer_tpu_torch.ops.cuda.renderer_fast import bake_aligned_scene
+
+    def s(v):
+        return v * n // 128
+
+    vpu = 20.0 * n / 128
+    g = np.zeros((n, n, n), np.uint8)                          # (z, y, x), y up
+    g[:, s(48):s(56), :] = 30                                  # floor slab
+    g[s(30):s(70), s(56):s(96), s(30):s(70)] = 4               # glass box
+    g[s(32):s(68), s(56):s(94), s(32):s(68)] = 0               # hollow, open below
+    g[s(44):s(56), s(56):s(84), s(44):s(56)] = 40              # pillar inside
+    g[s(20):s(70), s(56):s(110), s(90):s(94)] = 12             # mirror plate
+    rng = np.random.RandomState(0)
+    pal = (rng.rand(256, 3) * 0.8 + 0.1).astype(np.float32)
+    # grid corner at (-2.4, -3.2, -4.9): the drones land at grid y 96..112
+    base = VoxelVolume(g, palette=pal, pos=(0.8, 0.0, -1.7), vpu=vpu)
+    m = s(16)
+    c = (m - 1) / 2
+    z, y, x = np.meshgrid(*[np.arange(m)] * 3, indexing="ij")
+    body = ((x - c) ** 2 / (m / 2) ** 2 + (y - c) ** 2 / (m / 4) ** 2
+            + (z - c) ** 2 / (m / 2) ** 2) <= 1.0
+    drones = [VoxelVolume(np.where(body, 17 + 8 * i, 0).astype(np.uint8), palette=pal,
+                          pos=(float(i), 2.0, 0.0), vpu=vpu) for i in range(4)]
+    merged = bake_aligned_scene([base] + drones)
+    scene = Scene(volumes=[merged], skydome=SkyDome.procedural(64, 32))
+    scene.add_light((2.0, 3.5, -1.5), 0.15, (1.0, 0.9, 0.8), 40.0)
+    return merged, scene
+
+
+def glass_box_camera(merged, theta: float, width: int, height: int) -> Camera:
+    """bench_suite.py:452-457's orbit camera around `glass_box_scene`."""
+    c0 = np.asarray(merged.pos) + np.asarray(merged.size) * 0.5
+    pos = (c0[0] + 3.2 * math.cos(theta * 10.0), c0[1] + 1.2,
+           c0[2] + 3.2 * math.sin(theta * 10.0))
+    return Camera.create(pos, tuple(c0), width / height)
+
+
+def blob_field(g, seed, peak=40.0, scale=0.25):
+    """bench_suite.py's sparse blob: a Gaussian with exact zeros outside
+    (~15 % of voxels occupied), random density inside, random albedo."""
+    rng = np.random.RandomState(seed)
+    zz, yy, xx = np.meshgrid(*[np.linspace(0, 1, g)] * 3, indexing="ij")
+    r2 = (xx - 0.5) ** 2 + (yy - 0.5) ** 2 + (zz - 0.5) ** 2
+    blob = peak * np.exp(-r2 * 60.0)
+    sigma = np.where(blob > 0.05, rng.rand(g, g, g) * blob * scale, 0.0)
+    return sigma.astype(np.float32), rng.rand(g, g, g, 3).astype(np.float32)
+
+
+def ring_views(g=128, views=32, px=64, vpu=20.0):
+    """inverse_128_32views (bench_suite.py:480-506): ``views`` ring views
+    of px x px pixels around the g^3 grid, grid-local rays in 32x32 tile
+    order, numpy."""
+    from voxel_tracer_tpu_torch.ops.cuda import diffint
+    center = g / (2 * vpu)
+    os_, ds_ = [], []
+    for v in range(views):
+        th = 2 * np.pi * v / views
+        r = 2.2 * g / vpu / 4
+        pos = (center + r * np.cos(th), center * 1.35, center + r * np.sin(th))
+        cam = Camera.create(pos, (center,) * 3, 1.0)
+        o, d = rays_for_image(cam, px, px, device="cpu")
+        os_.append(diffint.tile_raster(o.numpy(), px, px))
+        ds_.append(diffint.tile_raster(d.numpy(), px, px))
+    return (np.ascontiguousarray(np.concatenate(os_)),
+            np.ascontiguousarray(np.concatenate(ds_)))
