@@ -1010,6 +1010,108 @@ def phase_two_volumes():
     require(lsb <= LSB, f"two-volume image differs by {lsb} LSB")
 
 
+API_N = 4096                # inputs of the math3d helpers, CPU vs the card
+API_ULPS = {                 # card vs CPU; the rigid transforms: bit-equal
+    # PyTorch's float32 sqrt on the CPU is not correctly rounded (an ulp
+    # off on ~0.6 % of inputs; the phase counts both devices'), so norm
+    # differs by an ulp, and normalize's quotient by two
+    "norm": 2, "normalize": 2,
+    # sinf / cosf: within 2 ulps on the card (CUDA's bound) and 1 on the
+    # CPU; times the axis over its norm (2 ulps apart), rounded once more
+    "quat_from_axis_angle": 6,
+}
+
+
+def ulps(a, b):
+    """Most units in the last place between two float32 tensors (as
+    ordered integers: +0 and -0 are one value, +inf and -inf far apart)."""
+    k = [torch.as_tensor(x).detach().cpu().contiguous().view(torch.int32).long()
+         for x in (a, b)]
+    k = [torch.where(x < 0, -(x & 0x7fffffff), x) for x in k]
+    return int((k[0] - k[1]).abs().max())
+
+
+@timed_phase
+def phase_api():
+    """[api] The math3d helpers that JAX callers use, on the card against
+    the same calls on the CPU: the rigid transforms bit-equal (written
+    out elementwise in a fixed order), the rest within API_ULPS (sqrt,
+    sinf and cosf differ between the two libraries).  Then a
+    volume turned by quat_to_mat3(quat_from_axis_angle((0.3, 1, 0.2),
+    0.9)) on the card: its WxH world rays carried to local space by
+    rigid_inverse_point / rigid_inverse_vec and traced by B5, held
+    against trace_coherent_plain on the same local rays."""
+    from voxel_tracer_tpu_torch.models.camera import rays_for_image
+    from voxel_tracer_tpu_torch.models.volume import VoxelVolume
+    from voxel_tracer_tpu_torch.ops import math3d as m3, tonemap
+    from voxel_tracer_tpu_torch.ops.cuda import coherent, integrate
+    rng = np.random.RandomState(11)
+    axes = rng.randn(64, 3).astype(np.float32)
+    angles = rng.uniform(-math.pi, math.pi, 64).astype(np.float32)
+    v, p, pos, piv = (torch.from_numpy((rng.randn(API_N, 3) * 4).astype(np.float32))
+                      for _ in range(4))
+    v[:16] *= 1e-5                                  # shorter than normalize's eps
+    rcp = v.reshape(-1).clone()
+    rcp[:2] = torch.tensor([0.0, -0.0])
+    quats = {dev: torch.stack([m3.quat_from_axis_angle(torch.from_numpy(a).to(dev), float(t))
+                               for a, t in zip(axes, angles)]) for dev in ("cpu", "cuda")}
+    q = quats["cpu"]
+    rot = m3.quat_to_mat3(q)[torch.from_numpy(rng.randint(0, 64, API_N))]
+
+    def calls(dev):
+        qd, rd = q.to(dev), rot.to(dev)
+        vd, pd, posd, pivd = (x.to(dev) for x in (v, p, pos, piv))
+        return {
+            "quat_from_axis_angle": quats[dev], "quat_identity": m3.quat_identity(dev),
+            "quat_mul": m3.quat_mul(qd, qd.roll(1, 0)), "quat_to_mat3": m3.quat_to_mat3(qd),
+            "quat_rotate": m3.quat_rotate(qd, vd[:64]), "norm": m3.norm(vd),
+            "normalize": m3.normalize(vd, eps=1e-3), "safe_rcp": m3.safe_rcp(rcp.to(dev)),
+            "reinhard_extended": tonemap.reinhard_extended(vd.abs(), 4.0),
+            "rigid_forward": m3.rigid_forward(rd, posd, pivd, pd),
+            "rigid_inverse_point": m3.rigid_inverse_point(rd, posd, pivd, pd),
+            "rigid_forward_vec": m3.rigid_forward_vec(rd, vd),
+            "rigid_inverse_vec": m3.rigid_inverse_vec(rd, vd)}
+
+    cpu, card = calls("cpu"), calls("cuda")
+    require(all(x.is_cuda for x in card.values()), "[api] a helper left the card")
+    err = {k: ulps(card[k], cpu[k]) for k in cpu}
+    sq = torch.from_numpy(rng.uniform(0, 100, 1 << 20).astype(np.float32))
+    off_ieee = {dev: int((torch.sqrt(sq.to(dev)).cpu()
+                          != torch.sqrt(sq.double()).float()).sum()) for dev in ("cpu", "cuda")}
+    log(f"[api] math3d / tonemap helpers, {API_N} inputs, card vs CPU, ulps: {err}; float32 "
+        f"sqrt off the correctly rounded value on {off_ieee} of {sq.numel()} inputs")
+    for k, e in err.items():
+        limit = 0 if k.startswith("rigid_") else API_ULPS.get(k, 1)
+        require(e <= limit, f"[api] {k}: {e} ulps between the card and the CPU (limit {limit})")
+
+    rot_card = m3.quat_to_mat3(m3.quat_from_axis_angle((0.3, 1, 0.2), 0.9))
+    require(rot_card.is_cuda, "[api] the rotation was not built on the card")
+    vol = VoxelVolume.noise_filled((64, 64, 64), pos=(0.1, -0.05, 0.2), vpu=20.0)
+    vol.rot = rot_card.cpu().numpy()
+    fv = integrate.FastVolume(vol, device="cuda")
+    require(torch.equal(fv.rot, rot_card), "[api] the volume's rotation differs from the card's")
+    pk = fv.packed
+    o, d = rays_for_image(bench_camera(0.3, W / H), W, H)
+    o_l = m3.rigid_inverse_point(fv.rot, fv.pos, fv.pivot, o)
+    d_l = m3.rigid_inverse_vec(fv.rot, d)
+    o_c, d_c = (m3.rigid_inverse_point(fv.rot.cpu(), fv.pos.cpu(), fv.pivot.cpu(), o.cpu()),
+                m3.rigid_inverse_vec(fv.rot.cpu(), d.cpu()))
+    require(torch.equal(o_l.cpu(), o_c) and torch.equal(d_l.cpu(), d_c),
+            "[api] the card's local rays differ from the CPU's")
+    coherent.reset_launch_counts()
+    k = coherent.trace_coherent(pk.occ, pk.words, o_l, d_l, pk.bsize, pk.vpu)
+    torch.cuda.synchronize()
+    launches = coherent.KERNEL_LAUNCHES["coherent"]
+    p_ = coherent.trace_coherent_plain(pk.occ, pk.words, o_l, d_l, pk.bsize, pk.vpu)
+    frac = float((k["t"] < 1e30).float().mean())
+    log(f"[api] B5 launches on the turned volume's {W}x{H} rays: {launches}; hit fraction "
+        f"{frac:.4f}")
+    require(launches == 1, f"[api] B5 launched {launches} times, not once")
+    require(0.05 < frac < 0.99, f"[api] hit fraction {frac}")
+    dt = compare_traces("api B5 turned volume", k, p_)
+    return dict(launches=launches, err=dt, ulps=err)
+
+
 @timed_phase
 def phase_indep(mv, o_t, d_t):
     """[indep] render_indep flat and lambert at WxH on the bench scene and
@@ -2037,12 +2139,13 @@ def phase_parallel():
     (128^3 sigma + albedo, 32 ring views of 64x64 = 131,072 rays a step,
     vpu 20, Adam lr 1e-2, 192 march steps) on the wavefront march:
     Trainer.fit on one device, then under an NCCL world of one (the
-    ray-sharded make_train_step); two processes on cuda:0 over gloo: the
+    ray-sharded make_train_step), the Trainer there also built JAX-style
+    with Trainer(cfg, make_ray_mesh(1)); two processes on cuda:0 over gloo: the
     ray-sharded step, overlap_slabs 4 against 1 and the grid-sharded step
     (GRID 2) against the ray-sharded one, the grid-sharded trace, and
     sharded_render against the unsharded frame."""
     import torch.distributed as dist
-    from voxel_tracer_tpu_torch.parallel import distributed, worker
+    from voxel_tracer_tpu_torch.parallel import distributed, mesh as pmesh, worker
     problem = worker.train_problem("inverse_128")
     one = worker.run_trainer(problem, "cuda", PAR_STEPS)
     require(one["world"] == 1, "the one-device Trainer ran on a mesh")
@@ -2051,10 +2154,23 @@ def phase_parallel():
     try:
         require(dist.get_backend() == "nccl", f"backend {dist.get_backend()}, not nccl")
         nccl_tr = worker.run_trainer(problem, "cuda", PAR_STEPS, profile=device_busy)
+        jax_tr = worker.run_trainer(problem, "cuda", PAR_STEPS, mesh=pmesh.make_ray_mesh(1))
         nccl = worker.run_train("replicated", problem, "cuda", PAR_STEPS)
+        try:
+            pmesh.make_ray_mesh(2)
+            two_err = None
+        except ValueError as e:
+            two_err = str(e)
     finally:
         distributed.shutdown()
-    require(nccl_tr["world"] == 1, "the NCCL Trainer did not run on the mesh")
+    require(nccl_tr["world"] == 1 and jax_tr["world"] == 1,
+            "the NCCL Trainer did not run on the mesh")
+    log(f"[parallel] JAX-style Trainer(cfg, make_ray_mesh(1)) under the NCCL world of one: "
+        f"losses {jax_tr['losses']} vs Trainer(cfg)'s {nccl_tr['losses']}; "
+        f"make_ray_mesh(2): ValueError {two_err!r}")
+    require(jax_tr["losses"] == nccl_tr["losses"],
+            "Trainer(cfg, make_ray_mesh(1)) trains unlike Trainer(cfg)")
+    require(two_err is not None, "make_ray_mesh(2) under a world of one did not raise ValueError")
     _close("Trainer under an NCCL world of one vs one device", nccl_tr["losses"],
            one["losses"], PAR_RTOL_ONE)
     wall, busy, kernels = nccl_tr["profile"]
@@ -2123,12 +2239,14 @@ def phase_parallel():
 @timed_phase
 def phase_render_vox():
     """[render_vox] The example on a .vox file of the glass-box stand-in
-    (pillar, hollow glass box, mirror, floor, drones) at 640x384: flat,
+    (pillar, hollow glass box, mirror, floor, drones), read back by the C
+    parser and held against the numpy parse, at 640x384: flat,
     lambert and full with --fast (B1; B1 + B2; B1 + B2), launch counts at
     0 just before each and read just after; each frame held against the
     same frame through the kernels' plain versions, and its hit mask
     against the wavefront frame's (without --fast)."""
     from voxel_tracer_tpu_torch.examples import render_vox
+    from voxel_tracer_tpu_torch.models import vox
     from voxel_tracer_tpu_torch.models.vox import grid_vox_bytes
     from voxel_tracer_tpu_torch.ops.cuda import mega
     from voxel_tracer_tpu_torch.utils.profiling import glass_box_scene
@@ -2136,8 +2254,18 @@ def phase_render_vox():
     out_dir = os.path.join(ROOT, "build", "render_vox")
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, "glass_box.vox")
+    data = grid_vox_bytes(merged.grid, merged.palette)
     with open(path, "wb") as f:
-        f.write(grid_vox_bytes(merged.grid, merged.palette))
+        f.write(data)
+    require(vox._native_module() is not None, "the C .vox parser (native/_voxnative) did not import")
+    native, walk = vox.parse_vox(data, use_native=True), vox.parse_vox(data, use_native=False)
+    require(len(native) == len(walk) == 1
+            and np.array_equal(native[0].grid, walk[0].grid)
+            and np.array_equal(native[0].palette, walk[0].palette)
+            and np.array_equal(native[0].grid, merged.grid),
+            "the C .vox parser's model differs from the numpy parse")
+    log(f"[render_vox] {path}: the C parser's model equals the numpy parse "
+        f"({native[0].grid.shape} grid, palette)")
     w, h = RV_SIZE
     cam = (4.5, 3.0, -7.5)
     t0 = time.perf_counter()
@@ -2223,6 +2351,7 @@ def main():
 
     kr = phase_kernel_renderer()
     phase_two_volumes()
+    api = phase_api()
     ind = phase_indep(mv, o_rand, d_rand)
     new_times = phase_new_timing(kr, ind, mv, o_rand, d_rand)
     wh = phase_whitted()
@@ -2319,7 +2448,8 @@ def main():
                                   dup_warp_step_share=diffint_res["dup"])))
     for name, src_name, line, launches_n, err, t, extra in (
             ("coherent", "coherent", "coherent.py:444", kr["launches"], kr["err"],
-             new_times["coherent primary"], {}),
+             new_times["coherent primary"],
+             {"api": dict(launches=api["launches"], max_abs_err=api["err"])}),
             ("indep_camera", "indep", "indep.py:468", ind["launches"]["indep_camera"],
              ind["err_cam"], new_times["indep_camera"],
              {"grid_128": row(new_times["indep_camera 128^3"])}),

@@ -15,14 +15,19 @@ import jax.numpy as jnp
 from voxel_tracer_tpu.models.camera import Camera, rays_for_image
 from voxel_tracer_tpu.models.volume import VoxelVolume
 from voxel_tracer_tpu.ops import dda as jdda
-from voxel_tracer_tpu.ops.math3d import quat_from_axis_angle, quat_to_mat3
 
 from voxel_tracer_tpu_torch.ops import dda as tdda
+from voxel_tracer_tpu_torch.ops import math3d as tmath3d
 from voxel_tracer_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
 T_ATOL = 1e-5
+
+
+def _rotation(axis, angle):
+    """(3, 3) float32 rotation by ``angle`` about ``axis`` (numpy)."""
+    return tmath3d.quat_to_mat3(tmath3d.quat_from_axis_angle(axis, angle, device="cpu")).numpy()
 
 
 def _sphere_grid(n=64, r=0.4, material=5):
@@ -76,7 +81,7 @@ def _case(name):
         vol = VoxelVolume(_sphere_grid(64, r=0.3), vpu=20.0)
         return vol, _camera_rays((0.0, 1.2, 0.0), (0.05, 0.0, 0.1))
     if name == "rotated":
-        rot = np.asarray(quat_to_mat3(quat_from_axis_angle((0, 1, 0), 0.7)))
+        rot = _rotation((0, 1, 0), 0.7)
         vol = VoxelVolume(_sphere_grid(), rot=rot, vpu=20.0)
         return vol, _camera_rays((0, 0.5, -4), (0, 0, 0))
     if name == "noise":

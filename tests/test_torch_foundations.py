@@ -6,6 +6,8 @@ parameters allclose at atol 1e-6; grids, brick occupancy, .vox grids and
 palettes exactly equal; sky and tonemap within 1 LSB after RGB8.
 """
 
+import struct
+
 import numpy as np
 import pytest
 import torch
@@ -17,7 +19,6 @@ from voxel_tracer_tpu.models import volume as jvolume
 from voxel_tracer_tpu.models import vox as jvox
 from voxel_tracer_tpu.ops import composite as jcomposite
 from voxel_tracer_tpu.ops import tonemap as jtonemap
-from voxel_tracer_tpu.ops.math3d import quat_from_axis_angle, quat_to_mat3
 from voxel_tracer_tpu.ops.pallas import mega as jmega
 
 from voxel_tracer_tpu_torch.convert import camera_from_jax, volume_from_jax
@@ -33,6 +34,11 @@ torch.set_num_threads(1)
 
 ATOL = 1e-6
 SUN = np.array([-0.619501, 0.465931, -0.631765], np.float32)
+
+
+def _rotation(axis, angle):
+    """(3, 3) float32 rotation by ``angle`` about ``axis`` (numpy)."""
+    return tmath3d.quat_to_mat3(tmath3d.quat_from_axis_angle(axis, angle, device="cpu")).numpy()
 
 
 def _rgb8(v):
@@ -94,7 +100,7 @@ def test_noise_volume_and_brick_occ():
 
 
 def test_volume_from_jax():
-    rot = np.asarray(quat_to_mat3(quat_from_axis_angle((0, 1, 0), 0.7)))
+    rot = _rotation((0, 1, 0), 0.7)
     g = np.random.RandomState(4).randint(0, 5, (20, 12, 9)).astype(np.uint8)
     pal = np.random.RandomState(3).rand(256, 3).astype(np.float32)
     jv = jvolume.VoxelVolume(g, pal, pos=(0.1, -0.2, 0.3), rot=rot, vpu=16.0)
@@ -132,6 +138,46 @@ def test_parse_vox(with_palette, tmp_path):
         tvox.parse_vox(b"NOPE" + data[4:])
 
 
+def _two_model_vox(rng):
+    """.vox bytes of two models (their SIZE and XYZI chunks in turn) and
+    one non-default palette, built from `grid_vox_bytes`' chunks; and the
+    two grids."""
+    pal = rng.rand(256, 3).astype(np.float32)
+    grids, bodies = [], []
+    for shape in ((6, 9, 5), (4, 3, 7)):
+        grids.append(np.where(rng.rand(*shape) < 0.4, rng.randint(1, 256, shape), 0)
+                     .astype(np.uint8))
+        data = tvox.grid_vox_bytes(grids[-1], pal)
+        bodies.append(data[20:])                 # past "VOX ", version, MAIN header
+    rgba = 12 + 256 * 4                            # the RGBA chunk closes each body
+    children = bodies[0][:-rgba] + bodies[1]
+    return data[:12] + struct.pack("<ii", 0, len(children)) + children, grids
+
+
+def test_parse_vox_native_matches_numpy_and_jax(monkeypatch):
+    """parse_vox(use_native=True) goes through the C parser, and its
+    models equal the numpy walker's and the JAX package's."""
+    data, grids = _two_model_vox(np.random.RandomState(12))
+    native = tvox._native_module()
+    assert native is not None, "native/_voxnative did not import"
+    calls = []
+    parse = native.parse_vox
+    monkeypatch.setattr(native, "parse_vox", lambda b: calls.append(1) or parse(b))
+    got = tvox.parse_vox(data, use_native=True)
+    assert calls == [1]
+    numpy_walk = tvox.parse_vox(data, use_native=False)
+    assert calls == [1]
+    monkeypatch.undo()
+    ref = jvox.parse_vox(data, use_native=True)
+    assert len(got) == len(numpy_walk) == len(ref) == 2
+    assert not np.array_equal(got[0].palette, tvox._default_palette())
+    for g, n, r, grid in zip(got, numpy_walk, ref, grids):
+        np.testing.assert_array_equal(g.grid, grid)
+        for name in ("grid", "palette"):
+            np.testing.assert_array_equal(getattr(g, name), getattr(n, name), err_msg=name)
+            np.testing.assert_array_equal(getattr(g, name), getattr(r, name), err_msg=name)
+
+
 def test_math_tonemap_and_local_transform():
     rng = np.random.RandomState(8)
     v = rng.randn(64, 3).astype(np.float32)
@@ -149,7 +195,7 @@ def test_math_tonemap_and_local_transform():
     y = rng.rand(4096, 3).astype(np.float32)
     assert np.abs(ttonemap.to_rgb8(torch.from_numpy(y)).numpy().astype(int)
                   - np.asarray(jtonemap.to_rgb8(jnp.asarray(y))).astype(int)).max() <= 1
-    rot = np.array(quat_to_mat3(quat_from_axis_angle((0.3, 1, 0.2), 0.9)))
+    rot = _rotation((0.3, 1, 0.2), 0.9)
     pos = np.array([0.1, -0.2, 0.3], np.float32)
     piv = np.array([0.5, 0.4, 0.6], np.float32)
     o, d = rng.randn(32, 3).astype(np.float32), rng.randn(32, 3).astype(np.float32)
@@ -161,7 +207,7 @@ def test_math_tonemap_and_local_transform():
 
 
 def test_camera_params_and_mega_camera():
-    rot = np.asarray(quat_to_mat3(quat_from_axis_angle((0, 1, 0), 0.4)))
+    rot = _rotation((0, 1, 0), 0.4)
     g = np.random.RandomState(1).randint(0, 2, (16, 16, 16)).astype(np.uint8)
     jv = jvolume.VoxelVolume(g, pos=(0.1, -0.05, 0.2), rot=rot, vpu=20.0)
     jc = jcamera.Camera.create((1.2, 0.9, -1.4), (0.1, -0.05, 0.2), 2.0)

@@ -2,9 +2,10 @@
 
 In-process, on seed-made inputs: `compose_slabs`, `split_volume_z`,
 `_min_reduce_hits`, `pad_to_multiple`, the batch split of `Trainer.fit`,
-`make_sharded_trace`'s blocks, the mesh without a process group, and the
-slab composition against one `render_density` at test_grid_train.py's
-tolerances.
+`make_sharded_trace`'s blocks, the mesh without a process group, the
+JAX-style calls of `make_ray_mesh`, `make_ray_grid_mesh`,
+`sharding.shard_rays` and `Trainer(cfg, mesh)`, and the slab composition
+against one `render_density` at test_grid_train.py's tolerances.
 
 At world 4 (four gloo ranks on the CPU, one spawn of the worker per rank
 for every mode): the grid-sharded step on a (grid 2, rays 2) mesh against
@@ -156,13 +157,71 @@ def test_mesh_without_a_group_is_one_rank():
     assert distributed.initialize() is False
     assert distributed.process_info() == dict(process_index=0, process_count=1,
                                               local_devices=1, global_devices=1)
-    m = tmesh.make_ray_grid_mesh(1, 1, "cpu")
+    m = tmesh.make_ray_grid_mesh(1, 1, device="cpu")
     assert m.size == 1 and m.coords == {"rays": 0, "grid": 0}
     x = torch.arange(6.0)
     np.testing.assert_array_equal(m.pmean("rays", x), x)
     np.testing.assert_array_equal(m.all_gather("grid", x), x[None])
-    with pytest.raises(AssertionError):
-        tmesh.make_ray_grid_mesh(2, 1, "cpu")
+    with pytest.raises(ValueError, match="2 devices"):
+        tmesh.make_ray_grid_mesh(2, 1, device="cpu")
+
+
+def test_jax_style_mesh_calls():
+    """JAX's calls carry over: `make_ray_mesh(n_devices, devices)` and
+    `grid_shard.make_ray_grid_mesh(n_ray, n_grid, devices)` build the
+    mesh of every rank, here the one process; a count or rank list that
+    is not the whole world raises ValueError, not an accelerator
+    error."""
+    from voxel_tracer_tpu_torch.parallel import grid_shard, mesh as tmesh
+    for m in (tmesh.make_ray_mesh(1, device="cpu"), tmesh.make_ray_mesh(device="cpu"),
+              tmesh.make_ray_mesh(None, [0], device="cpu"),
+              tmesh.make_ray_mesh(1, range(1), device="cpu")):
+        assert m.axis_names == ("rays",) and m.size == 1 and m.coords == {"rays": 0}
+        assert m.device == torch.device("cpu")
+    m = grid_shard.make_ray_grid_mesh(1, 1, [0], device="cpu")
+    assert m.shape == {"rays": 1, "grid": 1}
+    with pytest.raises(ValueError, match="2 devices.*not 1"):
+        tmesh.make_ray_mesh(2, device="cpu")
+    with pytest.raises(ValueError, match=r"range\(1\)"):
+        tmesh.make_ray_mesh(devices=[1], device="cpu")
+    with pytest.raises(ValueError):
+        grid_shard.make_ray_grid_mesh(1, 2, device="cpu")
+
+
+def test_sharding_shard_rays_returns_both_blocks():
+    """JAX's `shard_rays(mesh, origins, dirs)`: each rank gets its RAYS
+    block of both arrays; the blocks in rank order are the arrays."""
+    from voxel_tracer_tpu_torch.parallel import sharding
+    rng = np.random.RandomState(6)
+    o, d = (torch.from_numpy(rng.randn(12, 3).astype(np.float32)) for _ in range(2))
+    for world in (1, 2, 4):
+        blocks = [sharding.shard_rays(_rank_mesh(world, r), o, d) for r in range(world)]
+        assert all(len(b) == 2 and b[0].shape == b[1].shape == (12 // world, 3)
+                   for b in blocks)
+        assert torch.equal(torch.cat([b[0] for b in blocks]), o)
+        assert torch.equal(torch.cat([b[1] for b in blocks]), d)
+
+
+def test_trainer_takes_a_positional_mesh():
+    """`Trainer(cfg, mesh)`, JAX's call, trains bit for bit like
+    `Trainer(cfg, mesh=mesh)` for two wavefront steps."""
+    from voxel_tracer_tpu_torch.ops import diff as tdiff
+    from voxel_tracer_tpu_torch.parallel import mesh as tmesh
+    from voxel_tracer_tpu_torch.trainer import TrainConfig, Trainer
+    sigma, albedo, o, d = _slab_problem(g=8, n_rays=256, seed=2)
+    c = tdiff.render_density(torch.from_numpy(sigma), torch.from_numpy(albedo),
+                             torch.from_numpy(o), torch.from_numpy(d), 8.0, 32)["color"]
+    cfg = TrainConfig(grid_size=(8, 8, 8), vpu=8.0, lr=1e-2, steps=2, rays_per_batch=128,
+                      march_steps=32)
+    mesh = tmesh.make_ray_mesh(1, device="cpu")
+    runs = []
+    for tr in (Trainer(cfg, mesh, device="cpu"), Trainer(cfg, mesh=mesh, device="cpu")):
+        assert tr.mesh is mesh
+        losses = tr.fit(o, d, c.numpy(), log_every=1, log_fn=lambda s: None)
+        runs.append((losses, tr.params))
+    assert len(runs[0][0]) == 2 and runs[0][0] == runs[1][0]
+    for k in ("sigma", "albedo"):
+        assert torch.equal(runs[0][1][k], runs[1][1][k]), k
 
 
 def test_nccl_without_a_gpu_raises(monkeypatch):

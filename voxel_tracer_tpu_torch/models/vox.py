@@ -5,14 +5,16 @@ MAIN / PACK / SIZE / XYZI / RGBA, multiple models and the 256-entry
 palette that the reference reads through `ogt_vox` (vv.cpp:12-54).  Grid
 axis remap as vv.cpp:30,39-49: our (X, Y, Z) = (vox_size_y, vox_size_z,
 vox_size_x) with the vox Y axis flipped, so models stand upright with Y up.
-The JAX package's optional C parser is not ported; this numpy path is its
-reference.
+`parse_vox` uses the repository's C parser (`native/voxparse.c`, built as
+`native/_voxnative*.so` by `native/build.sh`) when it imports, as the JAX
+package does, else the numpy chunk walker below, which is its reference.
 
 Format spec: https://github.com/ephtracy/voxel-model/blob/master/MagicaVoxel-file-format-vox.txt
 """
 
 from __future__ import annotations
 
+import os
 import struct
 from dataclasses import dataclass, field
 from typing import List
@@ -68,8 +70,37 @@ class VoxModel:
         return self.palette[:, :3].astype(np.float32) / 255.0
 
 
-def parse_vox(data: bytes) -> List[VoxModel]:
-    """Parse .vox bytes into a list of models (shared palette)."""
+def _native_module():
+    """The C parser (native/voxparse.c) if it is built, else None."""
+    import importlib
+    import sys
+
+    if "_voxnative" in sys.modules:
+        return sys.modules["_voxnative"]
+    native_dir = os.path.join(
+        os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__)))), "native")
+    if native_dir not in sys.path:
+        sys.path.append(native_dir)
+    try:
+        return importlib.import_module("_voxnative")
+    except ImportError:
+        return None
+
+
+def parse_vox(data: bytes, use_native: bool = True) -> List[VoxModel]:
+    """Parse .vox bytes into a list of models (shared palette): through
+    the C parser when ``use_native`` and it is built, else through the
+    numpy chunk walker; both give the same models."""
+    native = _native_module() if use_native else None
+    if native is not None:
+        raw_models, pal_bytes = native.parse_vox(data)
+        palette = (np.frombuffer(pal_bytes, np.uint8).reshape(256, 4).copy()
+                   if pal_bytes is not None else _default_palette())
+        return [VoxModel(grid=np.frombuffer(grid, np.uint8).reshape(sx, sz, sy).copy(),
+                         palette=palette)
+                for sx, sy, sz, grid in raw_models]
+
     if data[:4] != b"VOX ":
         raise ValueError("not a .vox file (missing 'VOX ' magic)")
     pos = 8   # skip magic + version

@@ -47,9 +47,9 @@ import torch
 from voxel_tracer_tpu_torch.models.camera import primary_rays
 from voxel_tracer_tpu_torch.models.scene import SUN_DIR, SUN_LIGHT
 from voxel_tracer_tpu_torch.ops import dda
-from voxel_tracer_tpu_torch.ops.composite import _mat3_t_apply, _to_local
+from voxel_tracer_tpu_torch.ops.composite import _to_local
 from voxel_tracer_tpu_torch.ops.cuda import _build
-from voxel_tracer_tpu_torch.ops.math3d import BIG_F32
+from voxel_tracer_tpu_torch.ops.math3d import BIG_F32, rigid_inverse_point
 from voxel_tracer_tpu_torch.ops.tonemap import aces_approx as _aces
 
 BIG = 3e37          # miss depth of the kernel outputs (BIG_F32 inside the DDA)
@@ -58,6 +58,7 @@ BRICK = 8
 # aux word layout (mega.py:45-50): mat (8b) | ax (3b) | resolved (1b) |
 # steps (19b), where ax = axis * 2 + (step sign > 0): the sign is bit 8 and
 # the axis bits 9-10
+AUX_MAT_SHIFT = 0
 AUX_AX_SHIFT = 8
 AUX_RESOLVED_SHIFT = 11
 AUX_STEPS_SHIFT = 12
@@ -276,8 +277,8 @@ def mega_camera(mv: MegaVolume, camera, sun_dir, width, height,
     """World camera -> the 29 kernel floats in the volume's local frame,
     on the volume's device."""
     def to_local_pt(p):
-        return _mat3_t_apply(mv.rot, torch.as_tensor(p, dtype=torch.float32)
-                             - mv.pos) + mv.pivot
+        return rigid_inverse_point(mv.rot, mv.pos, mv.pivot,
+                                   torch.as_tensor(p, dtype=torch.float32))
 
     cam_local = tuple(to_local_pt(p) for p in
                       (camera.pos, camera.tl, camera.tr, camera.bl))
@@ -346,7 +347,7 @@ def _trace_aux(tables: MegaTables, o_l, d_l, fetch_mat):
 def _trace_dict(t, aux):
     return dict(
         t=t,
-        mat=aux & 255,
+        mat=(aux >> AUX_MAT_SHIFT) & 255,
         ax=(aux >> AUX_AX_SHIFT) & 7,
         steps=(aux >> AUX_STEPS_SHIFT) & 0x7ffff,
         resolved=((aux >> AUX_RESOLVED_SHIFT) & 1).bool(),
@@ -550,7 +551,7 @@ def _mega_frame(mv, camera, width, height, sun_dir, sun_scale, sky_mode,
     return dict(
         image=_unpack_rgb8(rgba).to(torch.uint8),
         depth=t,
-        mat=aux & 255,
+        mat=(aux >> AUX_MAT_SHIFT) & 255,
         steps=(aux >> AUX_STEPS_SHIFT) & 0x7ffff,
         resolved=(aux >> AUX_RESOLVED_SHIFT) & 1,
     )

@@ -1,9 +1,13 @@
-"""Small 3D math on batched tensors with a trailing axis of size 3.
+"""Small 3D math on batched tensors with a trailing axis of size 3:
+vectors, quaternions, rigid transforms.
 
 Counterpart of `voxel_tracer_tpu/ops/math3d.py` (the reference template
-math layer, `template/tmpl8math.h`), restricted to what the ported frames
-need.  `noise3d` is host-side numpy and is copied verbatim so the
-procedural grids match the JAX package bit for bit.
+math layer, `template/tmpl8math.h`).  Rigid transforms are a (3, 3)
+rotation and a (3,) translation, as there.  Matrix-vector products are
+written out elementwise in a fixed order, not as `torch.matmul`, so a
+card and the CPU round them alike.  `noise3d` is host-side numpy and is
+copied verbatim so the procedural grids match the JAX package bit for
+bit.
 """
 
 from __future__ import annotations
@@ -19,8 +23,17 @@ def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.sum(a * b, dim=-1)
 
 
-def normalize(v: torch.Tensor) -> torch.Tensor:
-    return v / torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True))
+def norm(v: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(dot(v, v))
+
+
+def normalize(v: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
+    """``v`` over its length; a non-zero ``eps`` is the least length
+    divided by."""
+    n = torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True))
+    if eps:
+        n = torch.clamp(n, min=eps)
+    return v / n
 
 
 def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -39,6 +52,103 @@ def sign_dir(d: torch.Tensor) -> torch.Tensor:
     +1, d < 0 including -0 -> -1.
     """
     return torch.where(torch.signbit(d), -1.0, 1.0).to(d.dtype)
+
+
+def safe_rcp(d: torch.Tensor) -> torch.Tensor:
+    """1/d with the IEEE inf behavior the slab/DDA math relies on."""
+    return 1.0 / d
+
+
+# ---------------------------------------------------------------------------
+# Quaternions (w, x, y, z) — analog of template/tmpl8math.h:888-1030.
+# ---------------------------------------------------------------------------
+
+def quat_identity(device="cuda") -> torch.Tensor:
+    return torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=torch.float32, device=device)
+
+
+def quat_from_axis_angle(axis, angle, device="cuda") -> torch.Tensor:
+    """Unit quaternion rotating by ``angle`` radians about ``axis``, on
+    the device of whichever of the two is a tensor, else on ``device``."""
+    like = next((x for x in (axis, angle) if torch.is_tensor(x)), None)
+    device = like.device if like is not None else device
+    axis = torch.as_tensor(axis, dtype=torch.float32, device=device)
+    axis = axis / norm(axis)
+    half = torch.as_tensor(angle, dtype=torch.float32, device=device) * 0.5
+    return torch.cat([torch.cos(half)[None], axis * torch.sin(half)], dim=0)
+
+
+def quat_mul(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
+    w1, x1, y1, z1 = q1[..., 0], q1[..., 1], q1[..., 2], q1[..., 3]
+    w2, x2, y2, z2 = q2[..., 0], q2[..., 1], q2[..., 2], q2[..., 3]
+    return torch.stack([
+        w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+        w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+        w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+        w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+    ], dim=-1)
+
+
+def quat_to_mat3(q: torch.Tensor) -> torch.Tensor:
+    """(…, 4) quaternion -> (…, 3, 3) rotation matrix."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    m = torch.stack([
+        1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy),
+        2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx),
+        2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy),
+    ], dim=-1)
+    return m.reshape(q.shape[:-1] + (3, 3))
+
+
+def _mat3_apply(rot: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """R @ v over the trailing axis, elementwise in a fixed order."""
+    return torch.stack([
+        rot[..., 0, 0] * v[..., 0] + rot[..., 0, 1] * v[..., 1] + rot[..., 0, 2] * v[..., 2],
+        rot[..., 1, 0] * v[..., 0] + rot[..., 1, 1] * v[..., 1] + rot[..., 1, 2] * v[..., 2],
+        rot[..., 2, 0] * v[..., 0] + rot[..., 2, 1] * v[..., 1] + rot[..., 2, 2] * v[..., 2],
+    ], dim=-1)
+
+
+def _mat3_t_apply(rot: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """R^T @ v over the trailing axis, elementwise in a fixed order."""
+    return torch.stack([
+        rot[..., 0, 0] * v[..., 0] + rot[..., 1, 0] * v[..., 1] + rot[..., 2, 0] * v[..., 2],
+        rot[..., 0, 1] * v[..., 0] + rot[..., 1, 1] * v[..., 1] + rot[..., 2, 1] * v[..., 2],
+        rot[..., 0, 2] * v[..., 0] + rot[..., 1, 2] * v[..., 1] + rot[..., 2, 2] * v[..., 2],
+    ], dim=-1)
+
+
+def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate vector(s) ``v`` by quaternion ``q``."""
+    return _mat3_apply(quat_to_mat3(q), v)
+
+
+# ---------------------------------------------------------------------------
+# Rigid transforms: world = R @ (local - pivot) + pos
+# (analog of OBB model = T(pos) * R * T(-pivot), obb.cpp:26-35)
+# ---------------------------------------------------------------------------
+
+def rigid_forward(rot3, pos, pivot, p_local):
+    """local -> world points."""
+    return _mat3_apply(rot3, p_local - pivot) + pos
+
+
+def rigid_inverse_point(rot3, pos, pivot, p_world):
+    """world -> local points (rot3 orthonormal, so inverse = transpose)."""
+    return _mat3_t_apply(rot3, p_world - pos) + pivot
+
+
+def rigid_forward_vec(rot3, v_local):
+    """local -> world directions."""
+    return _mat3_apply(rot3, v_local)
+
+
+def rigid_inverse_vec(rot3, v_world):
+    """world -> local directions."""
+    return _mat3_t_apply(rot3, v_world)
 
 
 # ---------------------------------------------------------------------------

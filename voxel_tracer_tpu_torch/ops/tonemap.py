@@ -20,6 +20,10 @@ def reinhard(v: torch.Tensor) -> torch.Tensor:
     return v / (1.0 + v)
 
 
+def reinhard_extended(v: torch.Tensor, max_white: float) -> torch.Tensor:
+    return v * (1.0 + v / (max_white * max_white)) / (1.0 + v)
+
+
 def aces_approx(v: torch.Tensor) -> torch.Tensor:
     """ACES filmic approximation (tonemap.h:22-30) — the default output
     transform (renderer.cpp:184,211)."""

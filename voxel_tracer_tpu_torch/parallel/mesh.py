@@ -137,13 +137,32 @@ def world_size() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
-def make_ray_mesh(device="cuda") -> Mesh:
-    """1-D mesh over every rank of the process group (or the one process)."""
-    return make_mesh(((RAYS, world_size()),), device)
+def _world_for(n_devices, devices) -> int:
+    """The world size, checked against a JAX-style device count or device
+    list.  One process drives one device, so a mesh spans every rank of
+    the process group: ``n_devices`` must be the world size and
+    ``devices``, ranks, must be ``range(world)``."""
+    world = world_size()
+    if n_devices is not None and n_devices != world:
+        raise ValueError(f"a mesh of {n_devices} devices needs a process group of "
+                         f"{n_devices} ranks, not {world}: one process drives one device")
+    if devices is not None and list(devices) != list(range(world)):
+        raise ValueError(f"a mesh over ranks {list(devices)} must span the process "
+                         f"group's {world} ranks, range({world})")
+    return world
 
 
-def make_ray_grid_mesh(n_ray: int, n_grid: int, device="cuda") -> Mesh:
-    """2-D mesh: (rays, grid), as JAX's `grid_shard.make_ray_grid_mesh`."""
+def make_ray_mesh(n_devices=None, devices=None, *, device="cuda") -> Mesh:
+    """1-D mesh over every rank of the process group (or the one process),
+    as JAX's `make_ray_mesh(n_devices, devices)`; a count or rank list
+    that is not the whole world raises ValueError."""
+    return make_mesh(((RAYS, _world_for(n_devices, devices)),), device)
+
+
+def make_ray_grid_mesh(n_ray: int, n_grid: int, devices=None, *, device="cuda") -> Mesh:
+    """2-D mesh: (rays, grid), as JAX's `grid_shard.make_ray_grid_mesh`;
+    n_ray * n_grid must be the world size."""
+    _world_for(n_ray * n_grid, devices)
     return make_mesh(((RAYS, n_ray), (GRID, n_grid)), device)
 
 

@@ -19,7 +19,8 @@ from voxel_tracer_tpu_torch.models.camera import rays_for_image
 from voxel_tracer_tpu_torch.ops import composite, diff
 from voxel_tracer_tpu_torch.parallel.grid_train import (
     PARAM_NAMES, background_rgb, compose_slabs, make_optimizer, slab_origins)
-from voxel_tracer_tpu_torch.parallel.mesh import RAYS, Mesh, shard_rays
+from voxel_tracer_tpu_torch.parallel import mesh as pmesh
+from voxel_tracer_tpu_torch.parallel.mesh import RAYS, Mesh
 from voxel_tracer_tpu_torch.renderer import RenderConfig, render_rays
 
 
@@ -51,13 +52,19 @@ def sharded_render(mesh: Mesh, config: RenderConfig):
     return render
 
 
+def shard_rays(mesh: Mesh, origins, dirs):
+    """This rank's RAYS blocks of a ray list: JAX's `shard_rays`, which
+    places both arrays on the mesh, in the port's row-block placement."""
+    return pmesh.shard_rays(mesh, origins), pmesh.shard_rays(mesh, dirs)
+
+
 def make_sharded_trace(mesh: Mesh, config: RenderConfig):
     """Scene intersection sharded over RAYS, scene replicated, no
     collective: fn(scene, o, d) traces this rank's block of the rays and
     returns its HitResult."""
 
     def trace_shard(scene, o, d):
-        return composite.intersect_scene(scene, shard_rays(mesh, o), shard_rays(mesh, d),
+        return composite.intersect_scene(scene, *shard_rays(mesh, o, d),
                                          config.max_candidates, config.max_steps)
 
     return trace_shard

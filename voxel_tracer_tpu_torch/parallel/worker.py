@@ -141,7 +141,7 @@ def run_train(mode, problem, device, steps, march_steps=None):
         params = place_grid_params(mesh, init)
         step = make_grid_sharded_train_step(mesh, cfg["lr"], cfg["vpu"], budget)
     else:
-        mesh = pmesh.make_ray_mesh(device)
+        mesh = pmesh.make_ray_mesh(device=device)
         params = {k: torch.from_numpy(v).to(device).requires_grad_()
                   for k, v in init.items()}
         step = make_train_step(mesh, cfg["lr"], cfg["vpu"], budget,
@@ -164,11 +164,12 @@ def run_train(mode, problem, device, steps, march_steps=None):
     return out
 
 
-def run_trainer(problem, device, steps, out_dir=None, profile=None):
+def run_trainer(problem, device, steps, out_dir=None, profile=None, mesh=None):
     """`Trainer.fit` (wavefront) on the problem's rays, batches of all of
     them, under the process group if one is initialized.  ``profile``:
     called with a function that runs one more step; its result is kept
-    under "profile"."""
+    under "profile".  ``mesh``: passed to `Trainer(cfg, mesh)` as JAX
+    passes it, positionally (None: the Trainer's own ray mesh)."""
     from voxel_tracer_tpu_torch.trainer import TrainConfig, Trainer
     s_true, a_true, o, d, cfg = problem
     c = targets(s_true, a_true, o, d, cfg["vpu"], cfg["max_steps"], device).cpu().numpy()
@@ -176,7 +177,7 @@ def run_trainer(problem, device, steps, out_dir=None, profile=None):
     tc = TrainConfig(grid_size=s_true.shape, vpu=cfg["vpu"], lr=cfg["lr"], steps=steps,
                      rays_per_batch=o.shape[0], march_steps=cfg["max_steps"],
                      sigma_init=cfg["sigma_init"], metrics_path=metrics)
-    tr = Trainer(tc, device)
+    tr = Trainer(tc, mesh, device=device)
     ms = []
 
     def timed(_msg):
@@ -196,7 +197,7 @@ def run_trainer(problem, device, steps, out_dir=None, profile=None):
 def run_kernel(device):
     from voxel_tracer_tpu_torch.trainer import TrainConfig, Trainer
     try:
-        Trainer(TrainConfig(grid_size=(8, 8, 8), backend="kernel"), device)
+        Trainer(TrainConfig(grid_size=(8, 8, 8), backend="kernel"), device=device)
     except ValueError as e:
         return dict(error=str(e))
     return dict(error=None)
@@ -228,7 +229,7 @@ def run_trace(n_grid, problem_name, device, out_dir=None):
     n, (w, h) = (48, (32, 32)) if problem_name == "small" else (128, (1280, 768))
     vol, cam = trace_volume(n, w / h)
     world = pmesh.world_size()
-    mesh = pmesh.make_ray_grid_mesh(world // n_grid, n_grid, device)
+    mesh = pmesh.make_ray_grid_mesh(world // n_grid, n_grid, device=device)
     slab = grid_shard.local_slab(mesh, grid_shard.split_volume_z(vol, n_grid, device))
     o, d = rays_for_image(cam, w, h, device=device)
     trace = grid_shard.make_grid_sharded_trace(mesh)
@@ -268,7 +269,7 @@ def run_render(problem_name, device):
     cam = glass_box_camera(merged, 0.05, w, h)
     cfg = RenderConfig(width=w, height=h, shading="full", max_bounces=3,
                        glass_reflections=2, compact=True)
-    mesh = pmesh.make_ray_mesh(device)
+    mesh = pmesh.make_ray_mesh(device=device)
     _sync(device)
     t0 = time.perf_counter()
     out = sharded_render(mesh, cfg)(sd, cam, 3)

@@ -111,9 +111,10 @@ def draw_batch(rng, n: int, batch: int, backend: str):
 
 class Trainer:
     """``mesh``: the ray mesh of the wavefront step; by default every rank
-    of the process group when one is initialized, else this one device."""
+    of the process group when one is initialized, else this one device.
+    ``Trainer(cfg, mesh)`` is JAX's call; ``device`` is keyword-only."""
 
-    def __init__(self, cfg: TrainConfig, device="cuda", mesh=None):
+    def __init__(self, cfg: TrainConfig, mesh=None, *, device="cuda"):
         backend = BACKEND_ALIASES.get(cfg.backend, cfg.backend)
         if backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS} or their JAX "
@@ -122,7 +123,7 @@ class Trainer:
             cfg = dataclasses.replace(cfg, backend=backend)
         self.cfg = cfg
         self.device = torch.device(device)
-        self.mesh = mesh if mesh is not None else pmesh.make_ray_mesh(self.device)
+        self.mesh = mesh if mesh is not None else pmesh.make_ray_mesh(device=self.device)
         if backend == "kernel" and self.mesh.size > 1:
             raise ValueError(
                 f"the kernel backend trains on one device, not a mesh of "

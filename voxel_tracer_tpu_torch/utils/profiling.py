@@ -37,10 +37,13 @@ ASSET_DIR = os.environ.get("VOXEL_TRACER_ASSET_DIR")
 
 
 @contextlib.contextmanager
-def trace(logdir: str = None):
+def trace(logdir: str = None, host_tracer_level: int = 2):
     """Record a `torch.profiler` trace (CPU and, where present, CUDA
     activity) around a code block; the Chrome trace is written to
-    ``logdir``/trace.json.  Usage:
+    ``logdir``/trace.json.  ``host_tracer_level`` is JAX's argument,
+    accepted and ignored: `torch.profiler` records every host op at one
+    level of detail and has no such setting (``with_stack`` adds Python
+    stacks, not a level).  Usage:
 
         with profiling.trace(d):
             out = render(...); torch.cuda.synchronize()
