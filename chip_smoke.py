@@ -14,9 +14,11 @@ them:
   integrate kernels are checked on bench_suite.py's diff_lambert_512 scene
   (sparse 64^3 blob, 512x512 camera rays) and the z-slab sequencer;
 - the kernel renderer: the 512-crate profiling scene baked into one 256^3
-  grid, `render_lambert_fast` and `render_flat_fast` at 1920x1088 on the
-  coherent kernel (B5), then B5 against its plain version on the frame's
-  own primary and shadow ray lists, and an unbaked two-volume scene;
+  grid and the bench scene, `render_lambert_fast` and `render_flat_fast`
+  at 1920x1088 on the coherent kernel (B5), each bench frame equal to its
+  plain-traced frame; then B5 against its plain version on each frame's
+  own primary and shadow ray lists and on `profiling.edge_rays`, and an
+  unbaked two-volume scene;
 - the independent DDA: `render_indep` flat and lambert at 1920x1088 on the
   bench scene (B3) and `trace_rays_indep` on 1 M random rays (B4), then B3
   on the bench frame of a 128^3 noise volume (4096 bricks, the most indep
@@ -76,7 +78,13 @@ larger of the bytes the call must move over 3.35 TB/s and its FP32
 operations (counted from this run's data, per-unit counts read off the
 kernel sources) over 67 TFLOP/s, the H100 SXM's published peaks.  The
 mega, integrate, coherent and indep rows also carry `differential_ms`
-(per-call time from two call counts); B3 carries the 128^3 frame's
+(per-call time from two call counts); B5 carries its numbers on the
+crate frame's shadow list, the random rays, the bench frame's primary and
+shadow lists and the turned volume's rays (`crate_shadow`, `random`,
+`bench_primary`, `bench_shadow`, `turned_volume`; its own row is the
+crate frame's primary list), the bench frames' launches
+(`bench_launches`) and B4 on the bench primary list
+(`indep_rays_bench_primary`, a yardstick); B3 carries the 128^3 frame's
 numbers (`grid_128`), B4 the long sparse volume's (`budget_rays`); B2 its
 numbers on the lit frame's shadow-ray list (`lit_shadow_rays`) and in the
 Whitted frame (`whitted`: B2 and B1 launches of the main path's frame,
@@ -106,6 +114,7 @@ import functools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -144,6 +153,7 @@ INT_OPS_PER_RAY = 65            # slab test, signs, first brick (diffint.cu)
 INT_OPS_PER_BRICK_STEP = 38     # brick planes, [tn, tf], exit axis
 INT_OPS_PER_VISIT = 43          # fine entry of an occupied brick
 INT_OPS_PER_FINE_STEP = {"fwd": 29, "bwd": 60}
+COH_BYTES_PER_RAY = 41          # o, d read; t, vox, ax, steps and a bool written
 COH_OPS_PER_RAY = 70            # slab test, signs, first brick (coherent.cu)
 COH_OPS_PER_BRICK_STEP = 50     # brick-AABB slab test, crossing rule, exit step
 COH_OPS_PER_VISIT = 35          # fine entry of an occupied brick (brick_walk.cuh)
@@ -269,6 +279,11 @@ def phase_build():
                 log(f"[build] {name}: {line.strip()}")
     log(f"[build] {len(logs)} of {len(list(_build.CSRC.glob('*.cu')))} "
         f"sources compiled in {dt:.1f} s into {_build.BUILD_DIR}")
+    # B5's entry functions keep their walk in registers
+    frames = [ln.strip() for ln in logs.get("coherent", "").splitlines()
+              if "bytes stack frame" in ln]
+    require(all(re.match(r"0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+                         ln) for ln in frames), f"B5 uses local memory: {frames}")
 
 
 @timed_phase
@@ -736,17 +751,21 @@ def phase_slabs(scene):
 
 def kernel_device_ms(fn, reps, name):
     """Mean device time of the kernels whose name contains ``name`` over
-    ``reps`` calls of fn(), from torch.profiler's kernel spans (None if
-    the profiler shows no device events)."""
+    ``reps`` calls of fn(), from torch.profiler's kernel spans; a window
+    that shows none of them is profiled again, up to 3 windows (None if
+    none shows device events)."""
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for _ in range(3):
         torch.cuda.synchronize()
-    spans = [e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
-    return sum(spans) / len(spans) / 1e3 if spans else None
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range.end - e.time_range.start for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
+        if spans:
+            return sum(spans) / len(spans) / 1e3
+    return None
 
 
 def device_busy(fn):
@@ -876,9 +895,10 @@ def frame_rays(scene, cam, lit):
 
 
 def coherent_bound(n, pk, stats):
-    """Rays read once (24 B), outputs written once (20 B), tables read once;
-    operations counted from the walk's work on these rays."""
-    nbytes = n * 44 + pk.occ.numel() * 4 + pk.words.numel() * 4
+    """Rays read once (24 B), outputs written once (17 B: four int32 and
+    a bool), tables read once; operations counted from the walk's work on
+    these rays."""
+    nbytes = n * COH_BYTES_PER_RAY + pk.occ.numel() * 4 + pk.words.numel() * 4
     ops = (n * COH_OPS_PER_RAY + stats.get("brick_steps", 0) * COH_OPS_PER_BRICK_STEP
            + stats.get("brick_visits", 0) * COH_OPS_PER_VISIT
            + stats.get("fine_steps", 0) * FINE_OPS_PER_STEP)
@@ -915,21 +935,72 @@ def time_kernel(tag, fn, plain_fn, counts, span, n, bnd):
     return dict(ms=ms[1], diff_ms=slope, dev_ms=dev_ms, plain_ms=plain_ms, bound=bnd)
 
 
+def crate_random_rays():
+    """N_RAYS random local rays in and around the crate field (on the
+    card): the frames' lists barely walk (primary rays stop at the closed
+    cube's face, shadow rays leave it), these walk the hollow crates."""
+    rng = np.random.RandomState(1)
+    o = rng.uniform(-1.0, 13.8, (N_RAYS, 3)).astype(np.float32)   # grid: [0, 12.8]^3
+    d = rng.randn(N_RAYS, 3).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return torch.from_numpy(o).cuda(), torch.from_numpy(d).cuda()
+
+
+def crate_scene():
+    """The 512-crate profiling scene baked into one 256^3 grid, as the
+    kernel renderer's FastScene on the card, and its camera."""
+    from voxel_tracer_tpu_torch.ops.cuda import renderer_fast
+    from voxel_tracer_tpu_torch.utils import profiling
+    scene = renderer_fast.FastScene.build([profiling.profiling_scene_merged()],
+                                          device="cuda")
+    return scene, profiling.profiling_camera(W / H)
+
+
+def bench_fast_scene():
+    """bench.py's scene (dense 64^3 noise, 512 bricks, all occupied) as the
+    kernel renderer's FastScene on the card, and bench.py's camera."""
+    from voxel_tracer_tpu_torch.models.volume import VoxelVolume
+    from voxel_tracer_tpu_torch.ops.cuda import renderer_fast
+    vol = VoxelVolume.noise_filled((64, 64, 64), pos=(0, 0, 0), vpu=20.0)
+    return renderer_fast.FastScene.build([vol], device="cuda"), bench_camera(0.0, W / H)
+
+
+def compare_fast_frames(tag, k, p):
+    """A render_lambert_fast or render_flat_fast frame against the same
+    frame traced by B5's plain version: every field equal (image 0 LSB)."""
+    eq = {f: bool(torch.equal(k[f], p[f])) for f in p}
+    log(f"[{tag}] kernel vs plain-traced frame, fields equal: {eq}")
+    require(all(eq.values()), f"{tag}: fields differ: {eq}")
+
+
+def b5_pair(tag, pk, o, d, stats=None):
+    """B5 and its plain version on one list: every field equal, depth
+    included; returns max |dt| (0)."""
+    from voxel_tracer_tpu_torch.ops.cuda import coherent
+    k = coherent.trace_coherent(pk.occ, pk.words, o, d, pk.bsize, pk.vpu)
+    p = coherent.trace_coherent_plain(pk.occ, pk.words, o, d, pk.bsize, pk.vpu,
+                                      stats=stats)
+    torch.cuda.synchronize()
+    dt = compare_traces(tag, k, p)
+    require(dt == 0.0, f"{tag}: t differs by {dt}")
+    return dt, int((~k["resolved"]).sum())
+
+
 @timed_phase
 def phase_kernel_renderer():
-    """[kernel renderer] The 512-crate profiling scene baked into one 256^3
-    grid; render_lambert_fast then render_flat_fast at WxH with the launch
-    counts at 0 just before; B5 against its plain version on the frame's
-    own primary and shadow ray lists."""
+    """[kernel renderer] render_lambert_fast then render_flat_fast at WxH
+    with the launch counts at 0 just before, on the 512-crate profiling
+    scene baked into one 256^3 grid and on the bench scene (whose frames
+    must equal their plain-traced frames); B5 against its plain version on
+    each frame's own primary and shadow ray lists, random rays through the
+    crate field and `profiling.edge_rays` on the bench grid."""
     from voxel_tracer_tpu_torch.ops.cuda import coherent, integrate, renderer_fast
     from voxel_tracer_tpu_torch.utils import profiling
     t0 = time.perf_counter()
-    vol = profiling.profiling_scene_merged()
-    scene = renderer_fast.FastScene.build([vol], device="cuda")
-    cam = profiling.profiling_camera(W / H)
+    scene, cam = crate_scene()
     pk = scene.volumes[0].packed
     torch.cuda.synchronize()
-    log(f"[kernel renderer] 512 crates baked into a {vol.grid.shape[::-1]} grid, "
+    log(f"[kernel renderer] 512 crates baked into a {pk.bsize} brick grid, "
         f"{pk.occ.numel()} bricks ({int(pk.occ.sum())} occupied), scene built in "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -951,27 +1022,49 @@ def phase_kernel_renderer():
     log(f"[kernel renderer] hit fraction {frac:.4f}, sunlit share of hits {sun:.4f}, "
         f"mean steps on hits {float(lit['steps'][lit['depth'] < 1e30].float().mean()):.2f}")
 
-    lists = frame_rays(scene, cam, lit)
-    # the frame's lists barely walk (primary rays stop at the cube's face,
-    # shadow rays leave it): random rays in and around the crate field walk
-    # the hollow crates
-    rng = np.random.RandomState(1)
-    o = rng.uniform(-1.0, 13.8, (N_RAYS, 3)).astype(np.float32)   # grid: [0, 12.8]^3
-    d = rng.randn(N_RAYS, 3).astype(np.float32)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    lists["random"] = (torch.from_numpy(o).cuda(), torch.from_numpy(d).cuda())
-    out = dict(launches=launches, err=0.0, scene=scene, cam=cam, lists=lists, stats={})
+    # the bench scene: every brick occupied, its rays walk into the noise
+    bscene, bcam = bench_fast_scene()
+    bpk = bscene.volumes[0].packed
+    coherent.reset_launch_counts()
+    blit = renderer_fast.render_lambert_fast(bscene, bcam, W, H)
+    torch.cuda.synchronize()
+    b_lit_launches = coherent.KERNEL_LAUNCHES["coherent"]
+    bflat = integrate.render_flat_fast(bscene.volumes[0], bscene.sky, bcam, W, H)
+    torch.cuda.synchronize()
+    b_launches = coherent.KERNEL_LAUNCHES["coherent"]
+    log(f"[kernel renderer bench] render_lambert_fast + render_flat_fast at {W}x{H}: "
+        f"coherent launches {b_launches} ({b_lit_launches} for the lit frame)")
+    require(b_lit_launches == 2, f"bench lit frame launched B5 {b_lit_launches} times")
+    require(b_launches > b_lit_launches, "bench flat frame did not launch B5")
+    bfrac, bsun = check_lit("kernel renderer bench", blit)
+    require(bool(torch.equal(bflat["depth"], blit["depth"])), "bench flat and lit depth differ")
+    log(f"[kernel renderer bench] hit fraction {bfrac:.4f}, sunlit share of hits "
+        f"{bsun:.4f}, mean steps on hits "
+        f"{float(blit['steps'][blit['depth'] < 1e30].float().mean()):.2f}")
+    compare_fast_frames("kernel renderer bench lit", blit,
+                        renderer_fast.render_lambert_fast_plain(bscene, bcam, W, H))
+    compare_fast_frames("kernel renderer bench flat", bflat, integrate.render_flat_fast_plain(
+        bscene.volumes[0], bscene.sky, bcam, W, H))
+
+    lists = {f"crate {k}": (pk, *v) for k, v in frame_rays(scene, cam, lit).items()}
+    lists["random"] = (pk, *crate_random_rays())
+    lists.update({f"bench {k}": (bpk, *v) for k, v in frame_rays(bscene, bcam, blit).items()})
+    out = dict(launches=launches, bench_launches=b_launches, err=0.0, lists=lists,
+               stats={}, scene=scene, cam=cam)
     unresolved = 0
-    for name, (o, d) in lists.items():
-        k = coherent.trace_coherent(pk.occ, pk.words, o, d, pk.bsize, pk.vpu)
+    for name, (pk_, o, d) in lists.items():
         stats = {}
-        p = coherent.trace_coherent_plain(pk.occ, pk.words, o, d, pk.bsize, pk.vpu,
-                                          stats=stats)
-        torch.cuda.synchronize()
-        unresolved += int((~k["resolved"]).sum())
-        out["err"] = max(out["err"], compare_traces(f"kernel renderer {name}", k, p))
+        dt, unres = b5_pair(f"kernel renderer {name}", pk_, o, d, stats)
+        out["err"] = max(out["err"], dt)
+        unresolved += unres
         log(f"[kernel renderer {name}] work {stats}")
         out["stats"][name] = stats
+
+    eo, ed = (torch.from_numpy(x).cuda()
+              for x in profiling.edge_rays(bscene.volumes[0].volume.grid, bpk.vpu))
+    dt, unres = b5_pair("kernel renderer edge rays", bpk, eo, ed)
+    out["err"] = max(out["err"], dt)
+    unresolved += unres
     log(f"[kernel renderer] unresolved rays: {unresolved}")
     require(unresolved == 0, f"{unresolved} unresolved rays")
     return out
@@ -1031,6 +1124,26 @@ def ulps(a, b):
     return int((k[0] - k[1]).abs().max())
 
 
+def turned_volume():
+    """[api]'s volume: a 64^3 noise volume turned by
+    quat_to_mat3(quat_from_axis_angle((0.3, 1, 0.2), 0.9)), the rotation
+    built on the card, and bench_camera(0.3)'s WxH rays carried to its
+    local space on the card by rigid_inverse_point / rigid_inverse_vec:
+    (FastVolume, rotation, world (o, d), local (o_l, d_l))."""
+    from voxel_tracer_tpu_torch.models.camera import rays_for_image
+    from voxel_tracer_tpu_torch.models.volume import VoxelVolume
+    from voxel_tracer_tpu_torch.ops import math3d as m3
+    from voxel_tracer_tpu_torch.ops.cuda import integrate
+    rot_card = m3.quat_to_mat3(m3.quat_from_axis_angle((0.3, 1, 0.2), 0.9))
+    vol = VoxelVolume.noise_filled((64, 64, 64), pos=(0.1, -0.05, 0.2), vpu=20.0)
+    vol.rot = rot_card.cpu().numpy()
+    fv = integrate.FastVolume(vol, device="cuda")
+    o, d = rays_for_image(bench_camera(0.3, W / H), W, H)
+    o_l = m3.rigid_inverse_point(fv.rot, fv.pos, fv.pivot, o)
+    d_l = m3.rigid_inverse_vec(fv.rot, d)
+    return fv, rot_card, (o, d), (o_l, d_l)
+
+
 @timed_phase
 def phase_api():
     """[api] The math3d helpers that JAX callers use, on the card against
@@ -1041,10 +1154,8 @@ def phase_api():
     0.9)) on the card: its WxH world rays carried to local space by
     rigid_inverse_point / rigid_inverse_vec and traced by B5, held
     against trace_coherent_plain on the same local rays."""
-    from voxel_tracer_tpu_torch.models.camera import rays_for_image
-    from voxel_tracer_tpu_torch.models.volume import VoxelVolume
     from voxel_tracer_tpu_torch.ops import math3d as m3, tonemap
-    from voxel_tracer_tpu_torch.ops.cuda import coherent, integrate
+    from voxel_tracer_tpu_torch.ops.cuda import coherent
     rng = np.random.RandomState(11)
     axes = rng.randn(64, 3).astype(np.float32)
     angles = rng.uniform(-math.pi, math.pi, 64).astype(np.float32)
@@ -1084,16 +1195,10 @@ def phase_api():
         limit = 0 if k.startswith("rigid_") else API_ULPS.get(k, 1)
         require(e <= limit, f"[api] {k}: {e} ulps between the card and the CPU (limit {limit})")
 
-    rot_card = m3.quat_to_mat3(m3.quat_from_axis_angle((0.3, 1, 0.2), 0.9))
+    fv, rot_card, (o, d), (o_l, d_l) = turned_volume()
     require(rot_card.is_cuda, "[api] the rotation was not built on the card")
-    vol = VoxelVolume.noise_filled((64, 64, 64), pos=(0.1, -0.05, 0.2), vpu=20.0)
-    vol.rot = rot_card.cpu().numpy()
-    fv = integrate.FastVolume(vol, device="cuda")
     require(torch.equal(fv.rot, rot_card), "[api] the volume's rotation differs from the card's")
     pk = fv.packed
-    o, d = rays_for_image(bench_camera(0.3, W / H), W, H)
-    o_l = m3.rigid_inverse_point(fv.rot, fv.pos, fv.pivot, o)
-    d_l = m3.rigid_inverse_vec(fv.rot, d)
     o_c, d_c = (m3.rigid_inverse_point(fv.rot.cpu(), fv.pos.cpu(), fv.pivot.cpu(), o.cpu()),
                 m3.rigid_inverse_vec(fv.rot.cpu(), d.cpu()))
     require(torch.equal(o_l.cpu(), o_c) and torch.equal(d_l.cpu(), d_c),
@@ -1102,14 +1207,17 @@ def phase_api():
     k = coherent.trace_coherent(pk.occ, pk.words, o_l, d_l, pk.bsize, pk.vpu)
     torch.cuda.synchronize()
     launches = coherent.KERNEL_LAUNCHES["coherent"]
-    p_ = coherent.trace_coherent_plain(pk.occ, pk.words, o_l, d_l, pk.bsize, pk.vpu)
+    stats = {}
+    p_ = coherent.trace_coherent_plain(pk.occ, pk.words, o_l, d_l, pk.bsize, pk.vpu,
+                                       stats=stats)
     frac = float((k["t"] < 1e30).float().mean())
     log(f"[api] B5 launches on the turned volume's {W}x{H} rays: {launches}; hit fraction "
         f"{frac:.4f}")
     require(launches == 1, f"[api] B5 launched {launches} times, not once")
     require(0.05 < frac < 0.99, f"[api] hit fraction {frac}")
     dt = compare_traces("api B5 turned volume", k, p_)
-    return dict(launches=launches, err=dt, ulps=err)
+    require(dt == 0.0, f"[api] B5 t differs by {dt}")
+    return dict(launches=launches, err=dt, ulps=err, turned=(pk, o_l, d_l), stats=stats)
 
 
 @timed_phase
@@ -1207,24 +1315,37 @@ def indep_extra_inputs(cam):
 
 
 @timed_phase
-def phase_new_timing(kr, ind, mv, o_t, d_t):
-    """[timing] B5 on the kernel renderer's ray lists, B3 on the bench frame,
-    B4 on the random rays; the lit frame of the kernel renderer end to end
-    (wall and device-busy time)."""
+def phase_new_timing(kr, api, ind, mv, o_t, d_t):
+    """[timing] B5 on the kernel renderer's ray lists and the turned
+    volume's rays (and B4 on the bench frame's primary list, the
+    yardstick), B3 on the bench frame, B4 on the random rays; the lit frame
+    of the kernel renderer end to end (wall and device-busy time)."""
     from voxel_tracer_tpu_torch.ops.cuda import coherent, indep, renderer_fast
-    pk = kr["scene"].volumes[0].packed
     out = {}
-    for name, (o, d) in kr["lists"].items():
-        def fn(o=o, d=d):
+    lists = dict(kr["lists"], **{"turned volume": api["turned"]})
+    stats = dict(kr["stats"], **{"turned volume": api["stats"]})
+    for name, (pk, o, d) in lists.items():
+        def fn(pk=pk, o=o, d=d):
             return coherent.trace_coherent(pk.occ, pk.words, o, d, pk.bsize, pk.vpu)
 
-        def plain(o=o, d=d):
+        def plain(pk=pk, o=o, d=d):
             return coherent.trace_coherent_plain(pk.occ, pk.words, o, d, pk.bsize,
                                                  pk.vpu)
         n = o.shape[0]
         out[f"coherent {name}"] = time_kernel(
             f"coherent {name} rays", fn, plain, (10, 40), "coherent_kernel", n,
-            coherent_bound(n, pk, kr["stats"][name]))
+            coherent_bound(n, pk, stats[name]))
+    # the yardstick: B4 walks the bench frame's primary list on indep's
+    # float program (its own rounding and step count)
+    o, d = kr["lists"]["bench primary"][1:]
+    n = o.shape[0]
+    ystats = {}
+    indep.trace_rays_indep_plain(o, d, ind["occb"], mv.tables, stats=ystats)
+    out["indep_rays bench primary"] = time_kernel(
+        "indep rays on the bench frame's primary list (B4, yardstick)",
+        lambda: indep.trace_rays_indep(o, d, ind["occb"], mv.tables),
+        lambda: indep.trace_rays_indep_plain(o, d, ind["occb"], mv.tables), (10, 40),
+        "indep_rays_kernel", n, indep_bound(n, 32, mv.tables, ystats, False))
     tb = mv.tables
     n_px = W * H
     ex = ind["extra"]
@@ -2353,7 +2474,7 @@ def main():
     phase_two_volumes()
     api = phase_api()
     ind = phase_indep(mv, o_rand, d_rand)
-    new_times = phase_new_timing(kr, ind, mv, o_rand, d_rand)
+    new_times = phase_new_timing(kr, api, ind, mv, o_rand, d_rand)
     wh = phase_whitted()
     mu = phase_multi()
     game = phase_game()
@@ -2446,10 +2567,15 @@ def main():
             diff_lambert_512=dict(ms=t_dl["ms"], differential_ms=t_dl["diff_ms"],
                                   device_ms=t_dl["dev_ms"], bound_ms=t_dl["bound"][0],
                                   dup_warp_step_share=diffint_res["dup"])))
+    coherent_rows = {key.replace(" ", "_"): row(new_times[f"coherent {key}"])
+                     for key in ("crate shadow", "random", "bench primary", "bench shadow",
+                                 "turned volume")}
     for name, src_name, line, launches_n, err, t, extra in (
             ("coherent", "coherent", "coherent.py:444", kr["launches"], kr["err"],
-             new_times["coherent primary"],
-             {"api": dict(launches=api["launches"], max_abs_err=api["err"])}),
+             new_times["coherent crate primary"],
+             dict(coherent_rows, bench_launches=kr["bench_launches"],
+                  indep_rays_bench_primary=row(new_times["indep_rays bench primary"]),
+                  api=dict(launches=api["launches"], max_abs_err=api["err"]))),
             ("indep_camera", "indep", "indep.py:468", ind["launches"]["indep_camera"],
              ind["err_cam"], new_times["indep_camera"],
              {"grid_128": row(new_times["indep_camera 128^3"])}),

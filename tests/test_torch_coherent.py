@@ -31,6 +31,7 @@ from voxel_tracer_tpu.ops import oracle
 from voxel_tracer_tpu.ops.pallas import coherent as jcoh
 
 from voxel_tracer_tpu_torch.ops.cuda import coherent
+from voxel_tracer_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -55,12 +56,16 @@ SCENES = {
 }
 
 
-def _jax_trace(vol, o_l, d):
-    """The Pallas kernel in interpret mode on rays padded to whole tiles."""
+def _jax_trace(vol, o_l, d, pad_with_first=False):
+    """The Pallas kernel in interpret mode on rays padded to whole tiles
+    (with rays at 0 along +z, or with copies of the first ray)."""
     n = o_l.shape[0]
     pad = (-n) % jcoh.TILE
-    o_p = np.concatenate([o_l, np.zeros((pad, 3), np.float32)])
-    d_p = np.concatenate([d, np.tile(np.float32([[0, 0, 1]]), (pad, 1))])
+    if pad_with_first:
+        o_p, d_p = (np.concatenate([x, np.repeat(x[:1], pad, 0)]) for x in (o_l, d))
+    else:
+        o_p = np.concatenate([o_l, np.zeros((pad, 3), np.float32)])
+        d_p = np.concatenate([d, np.tile(np.float32([[0, 0, 1]]), (pad, 1))])
     pk = jcoh.pack_volume(vol.grid, vol.vpu)
     res = jcoh.trace_coherent(pk.occ, pk.words, jnp.asarray(o_p), jnp.asarray(d_p),
                               pk.bsize, pk.vpu, interpret=True)
@@ -158,3 +163,118 @@ def test_miss_encoding_and_any_ray_count():
     np.testing.assert_array_equal(out["steps"][6:8], 0)
     assert out["vox"][8] >= 0 and out["ax"][8] == 1
     np.testing.assert_allclose(out["t"][8], ref["t"][8], atol=1e-5, rtol=0)
+
+
+def _on_voxel_plane(o, d, vpu):
+    """Rays that run inside a voxel plane: a zero direction component whose
+    origin coordinate is a whole number of voxels."""
+    v = o * np.float32(vpu)
+    return ((d == 0) & (v == np.round(v))).any(axis=1)
+
+
+# Rays whose first solid voxel is a tie: inside a voxel plane (they touch
+# the voxels on both sides), through brick corners (every voxel meeting
+# there), from a voxel's corner; and rays toward the volume from 1e30,
+# whose entry point carries an error of ~1e23 voxels.  Each traversal
+# breaks such ties its own way.
+AMBIGUOUS_GROUPS = ("corner", "solid_corner", "far_toward")
+
+
+@pytest.mark.parametrize("grid", ["sphere", "noise64"])
+def test_edge_rays_match_pallas_and_oracle(grid):
+    """`profiling.edge_rays` through the port (plain version) against the
+    Pallas kernel in interpret mode (each group of one major axis and
+    sign padded to whole tiles, so no ray fights its tile) and the scalar
+    oracle.  Every ray resolves.  Rays without a tie: the same hits, vox
+    and ax as the Pallas kernel and t within 1e-5, and within the oracle
+    test's tolerances, with no budget.  Rays with a tie (in a voxel plane,
+    `AMBIGUOUS_GROUPS`): each hit lies on a solid voxel, and, but for the
+    rays from 1e30, within 1e-4 of that voxel's box at t."""
+    vol = (JVolume(_sphere(), vpu=20.0) if grid == "sphere"
+           else JVolume.noise_filled((64, 64, 64), pos=(0, 0, 0), vpu=20.0))
+    o_l, d = profiling.edge_rays(vol.grid, vol.vpu)
+    n = o_l.shape[0]
+    out = _port_trace(vol, o_l, d)
+    assert out["resolved"].all()
+
+    major = np.abs(d).argmax(axis=1)
+    group = major * 2 + (d[np.arange(n), major] < 0)
+    ref = {}
+    for g in np.unique(group):
+        ids = np.nonzero(group == g)[0]
+        r = _jax_trace(vol, o_l[ids], d[ids], pad_with_first=True)
+        for k, v in r.items():
+            ref.setdefault(k, np.zeros(n, v.dtype))[ids] = v
+    ambiguous = _on_voxel_plane(o_l, d, vol.vpu)
+    for name in AMBIGUOUS_GROUPS:
+        ambiguous[profiling.EDGE_RAY_GROUPS[name]] = True
+    exact = ref["resolved"] & ~ambiguous
+    assert exact.sum() >= n // 2
+    hr, ho = ref["t"] < 1e30, out["t"] < 1e30
+    np.testing.assert_array_equal(ho[exact], hr[exact])
+    both = exact & hr
+    np.testing.assert_allclose(out["t"][both], ref["t"][both], atol=1e-5, rtol=0)
+    np.testing.assert_array_equal(out["vox"][exact], ref["vox"][exact])
+    np.testing.assert_array_equal(out["ax"][exact], ref["ax"][exact])
+
+    ov = oracle.OracleVolume(grid=vol.grid, vpu=vol.vpu, pos=vol.pos)
+    o_w = (o_l - np.asarray(vol.pivot) + np.asarray(vol.pos)).astype(np.float32)
+    bsize = coherent.pack_volume(vol.grid, vol.vpu, device="cpu").bsize
+    pad = np.zeros([b * 8 for b in bsize[::-1]], np.uint8)
+    pad[tuple(slice(0, s) for s in vol.grid.shape)] = vol.grid
+    zyx = np.stack(np.unravel_index(np.maximum(out["vox"], 0), pad.shape), axis=1)
+    far = np.zeros(n, bool)
+    far[profiling.EDGE_RAY_GROUPS["far_toward"]] = True
+    bad = []
+    for i in range(n):
+        mat = pad[tuple(zyx[i])]
+        if ambiguous[i]:
+            if ho[i]:
+                lo = zyx[i, ::-1] / np.float32(vol.vpu)
+                p = o_l[i].astype(np.float64) + out["t"][i] * d[i].astype(np.float64)
+                off_box = np.abs(p - np.clip(p, lo, lo + 1.0 / vol.vpu)).max()
+                if mat == 0 or (not far[i] and off_box > 1e-4):
+                    bad.append((i, "ambiguous", mat, off_box))
+            continue
+        hh = oracle.intersect_volume(ov, o_w[i], d[i])
+        if hh.no_hit != (not ho[i]):
+            bad.append((i, "hit", hh.no_hit))
+        elif not hh.no_hit and not (np.isclose(out["t"][i], hh.depth, atol=2e-3, rtol=1e-4)
+                                    and mat == hh.material):
+            bad.append((i, "t or material", out["t"][i], hh.depth))
+    assert not bad, bad
+
+
+def test_brick_bits_and_launch_args():
+    """The bitmap that `pack_volume` keeps with its launch arguments on occ
+    holds occ's flags (bit b % 32 of word b // 32, zero-padded to a
+    multiple of 4 words); the launch arguments are reused, and rebuilt
+    after an in-place edit of occ or for another words tensor; malformed
+    tables raise."""
+    rng = np.random.RandomState(5)
+    g = np.where(rng.rand(40, 24, 72) < 0.002, 7, 0).astype(np.uint8)
+    pv = coherent.pack_volume(g, 20.0, device="cpu")
+    nb = pv.occ.numel()
+
+    def flags(bits):
+        w = bits.numpy().view(np.uint32)
+        assert w.size % 4 == 0 and (w.size - 4) * 32 < nb <= w.size * 32
+        b = np.arange(w.size * 32)
+        return (w[b >> 5] >> (b & 31)) & 1
+
+    dev = pv.occ.device
+    la = coherent._launch_args(pv.occ, pv.words, pv.bsize, pv.vpu, dev)
+    assert la is pv.occ._vt_coherent            # built by pack_volume
+    f = flags(la.bits)
+    np.testing.assert_array_equal(f[:nb], pv.occ.numpy() != 0)
+    assert not f[nb:].any() and 0 < f.sum() < nb
+    assert coherent._launch_args(pv.occ, pv.words, pv.bsize, pv.vpu, dev) is la
+    b = int(pv.occ.nonzero()[0, 0])
+    pv.occ[b] = 0
+    la2 = coherent._launch_args(pv.occ, pv.words, pv.bsize, pv.vpu, dev)
+    assert la2 is not la and flags(la2.bits)[b] == 0
+    assert coherent._launch_args(pv.occ, pv.words.clone(), pv.bsize, pv.vpu, dev) is not la2
+    with pytest.raises(ValueError):
+        coherent._launch_args(pv.occ, pv.words[:-1], pv.bsize, pv.vpu, dev)
+    with pytest.raises(TypeError):
+        coherent._launch_args(pv.occ.long(), pv.words, pv.bsize, pv.vpu, dev)

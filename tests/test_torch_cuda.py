@@ -15,8 +15,9 @@ orders that change from run to run, most where many rays update one
 voxel), and exactly 0 in empty bricks and, for d sigma, where sigma is 0.
 Coherent (B5) and indep (B3, B4) kernels: the same float32 program as the
 plain versions, so hits, voxel/material, axes, steps and resolved flags
-equal; t within 1e-5 (equal on the indep volumes that fill the bitmap or
-walk hundreds of bricks); image within 1 LSB (expf in the sky).
+equal; t within 1e-5 (equal on B5's edge rays, its large grid and its
+edited grid, and on the indep volumes that fill the bitmap or walk
+hundreds of bricks); image within 1 LSB (expf in the sky).
 """
 
 import numpy as np
@@ -415,6 +416,74 @@ def test_coherent_kernel_empty_list_and_bad_input(cuda):
                                 pv.bsize, pv.vpu)
     with pytest.raises(ValueError):
         coherent.trace_coherent(pv.occ.cpu(), pv.words, o, o, pv.bsize, pv.vpu)
+
+
+def _assert_coherent_equal(k, p):
+    """B5 against its plain version: every field equal, t included."""
+    for f in ("t", "vox", "ax", "steps", "resolved"):
+        assert k[f].dtype == p[f].dtype and torch.equal(k[f], p[f]), f
+
+
+def _edge_volume(grid):
+    if grid == "sphere":
+        return _sphere_volume()
+    if grid == "bench":                 # bench.py's 64^3 noise, 512 bricks
+        return VoxelVolume.noise_filled((64, 64, 64), pos=(0, 0, 0), vpu=20.0)
+    return VoxelVolume.noise_filled((40, 48, 56))
+
+
+@pytest.mark.parametrize("grid", ["sphere", "noise", "bench"])
+def test_coherent_kernel_edge_rays(cuda, grid):
+    """`profiling.edge_rays`: axis-parallel rays, zero direction
+    components, starts inside solid voxels and on brick faces, origins near
+    1e30, rays grazing brick edges and through brick corners."""
+    vol = _edge_volume(grid)
+    pv = coherent.pack_volume(vol.grid, vol.vpu, cuda)
+    o, d = (torch.from_numpy(x).to(cuda) for x in profiling.edge_rays(vol.grid, vol.vpu))
+    before = coherent.KERNEL_LAUNCHES["coherent"]
+    k = coherent.trace_coherent(pv.occ, pv.words, o, d, pv.bsize, pv.vpu)
+    assert coherent.KERNEL_LAUNCHES["coherent"] == before + 1
+    p = coherent.trace_coherent_plain(pv.occ, pv.words, o, d, pv.bsize, pv.vpu)
+    torch.cuda.synchronize()
+    _assert_coherent_equal(k, p)
+    assert bool(k["resolved"].all()) and bool((k["t"] < coherent.BIG).any())
+
+
+def test_coherent_kernel_large_grid(cuda):
+    """A grid of 409,600 bricks (a 51,200-byte bitmap), 2 % of them holding
+    random voxels, and rays in and around it."""
+    rng = np.random.RandomState(9)
+    bsize = (80, 80, 64)
+    nb = bsize[0] * bsize[1] * bsize[2]
+    bits = np.zeros((nb, 512), bool)
+    full = np.nonzero(rng.rand(nb) < 0.02)[0]
+    bits[full] = rng.rand(len(full), 512) < 0.1
+    words = np.packbits(bits, axis=1, bitorder="little").view("<u4").view(np.int32)
+    occ = torch.tensor(words.any(axis=1).astype(np.int32), device=cuda)
+    words = torch.tensor(words, device=cuda)
+    o, d = _local_rays(cuda, 65536, -1.0, 33.0, 5)
+    o = o * torch.tensor([1.0, 1.0, 0.8], device=cuda)
+    k = coherent.trace_coherent(occ, words, o, d, bsize, 20.0)
+    p = coherent.trace_coherent_plain(occ, words, o, d, bsize, 20.0)
+    torch.cuda.synchronize()
+    _assert_coherent_equal(k, p)
+    assert bool((k["t"] < coherent.BIG).any())
+
+
+def test_coherent_kernel_follows_in_place_occupancy_edits(cuda):
+    """The launch arguments kept on `occ` are rebuilt after an in-place
+    edit: the kernel then walks the edited bitmap, as the plain version
+    walks the edited flags."""
+    vol = _sphere_volume()
+    pv = coherent.pack_volume(vol.grid, vol.vpu, cuda)
+    o, d = _local_rays(cuda, 8192, -0.5, 1.3, 11)
+    first = coherent.trace_coherent(pv.occ, pv.words, o, d, pv.bsize, pv.vpu)
+    pv.occ[pv.occ.nonzero()[:4, 0]] = 0
+    k = coherent.trace_coherent(pv.occ, pv.words, o, d, pv.bsize, pv.vpu)
+    p = coherent.trace_coherent_plain(pv.occ, pv.words, o, d, pv.bsize, pv.vpu)
+    torch.cuda.synchronize()
+    _assert_coherent_equal(k, p)
+    assert not torch.equal(first["vox"], k["vox"])
 
 
 def test_lambert_fast_kernel_matches_plain(cuda):

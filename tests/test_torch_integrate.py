@@ -275,6 +275,23 @@ def test_render_flat_fast_matches_jax(scene):
     assert np.abs(out["image"] - ref["image"])[same].max() <= LSB
 
 
+def test_render_flat_fast_plain_equals_render_flat_fast_on_cpu():
+    """`render_flat_fast_plain` (chip_smoke.py's plain-traced flat frame)
+    is `render_flat_fast` with B5's plain version: on CPU tensors, where
+    the wrapper runs that version too, the frames are equal."""
+    make, campos, target = SCENES[sorted(SCENES)[0]]
+    jv = make()
+    jcam = JCamera.create(campos, target, W / H)
+    fv = integrate.FastVolume(volume_from_jax(jv), device="cpu")
+    sky = torch.from_numpy(JSky.procedural(64, 32).pixels)
+    a = integrate.render_flat_fast(fv, sky, camera_from_jax(jcam), W, H)
+    b = integrate.render_flat_fast_plain(fv, sky, camera_from_jax(jcam), W, H)
+    assert a.keys() == b.keys()
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+    assert bool((a["depth"] < 1e30).any())
+
+
 def _compare_lit(ref, out, min_hits=300):
     hr, ho = ref["depth"] < 1e30, out["depth"] < 1e30
     irr_bad = np.abs(out["irradiance"] - ref["irradiance"]).max(-1) > 1e-5

@@ -1,8 +1,8 @@
 """The design-trial tools of the port's CUDA kernels stay honest: every
-textual variant of `tools/torch_indep_trials.py` (B3 / B4) and
-`tools/torch_mega_trials.py` (B1 / B2) still applies to the committed
-source and changes it, so a variant cannot quietly become the committed
-kernel or stop being built.  Needs no nvcc: the variants are only
+textual variant of `tools/torch_indep_trials.py` (B3 / B4),
+`tools/torch_mega_trials.py` (B1 / B2) and `tools/torch_coherent_trials.py`
+(B5) still applies to the committed source and changes it, so a variant
+cannot quietly become the committed kernel or stop being built.  Needs no nvcc: the variants are only
 generated here; the tools compile and time them on a card."""
 
 import importlib.util
@@ -20,7 +20,8 @@ def _tool(name):
     return mod
 
 
-CASES = [(tool, variant) for tool in ("torch_indep_trials", "torch_mega_trials")
+CASES = [(tool, variant) for tool in ("torch_indep_trials", "torch_mega_trials",
+                                       "torch_coherent_trials")
          for variant in _tool(tool).VARIANTS if variant != "committed"]
 
 

@@ -63,6 +63,7 @@ namespace {
 
 using walk::BIG;
 using walk::FINE_ITERS;
+using walk::fine_setup;
 using walk::Geo;
 
 constexpr int RAY_THREADS = 128;
@@ -82,20 +83,13 @@ struct Hit {
   int resolved;
 };
 
-// First cell and crossing t of one axis at a level's entry point e (cells
-// in [0, hi]); pos: the step sign is +1.  The brick level clamps in float
-// (indep.py:146-152), the fine level in int (:190-198).
+// First cell and crossing t of one axis at the brick level's entry point e
+// (cells in [0, hi]); pos: the step sign is +1.  The brick level clamps in
+// float (indep.py:146-152), the fine level in int (:190-198,
+// walk::fine_setup).
 __device__ __forceinline__ void brick_setup(float e, bool pos, float rdir, int hi,
                                             int& cell, float& tm) {
   cell = (int)fminf(fmaxf(floorf(e), 0.0f), (float)hi);
-  float v = (((float)cell - e) + (pos ? 1.0f : 0.0f)) * rdir;
-  if (isnan(v)) v = BIG;
-  tm = fminf(v, BIG);
-}
-
-__device__ __forceinline__ void fine_setup(float e, bool pos, float rdir, int& cell,
-                                           float& tm) {
-  cell = min(max((int)floorf(e), 0), 7);
   float v = (((float)cell - e) + (pos ? 1.0f : 0.0f)) * rdir;
   if (isnan(v)) v = BIG;
   tm = fminf(v, BIG);

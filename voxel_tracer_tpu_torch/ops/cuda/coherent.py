@@ -32,6 +32,14 @@ Options of the JAX function that tune the TPU tiles are left out:
 version (`trace_coherent_plain`, the same float32 program batched over
 rays) for CPU tensors; for a CUDA tensor it launches the kernel or raises.
 `KERNEL_LAUNCHES` counts the launches.
+
+The kernel tests a brick's occupancy in a bitmap (`brick_bits`, built
+once per volume beside the flags).  A volume's launch arguments (bitmap,
+table pointers, geometry floats, device) are built once and kept on its
+``occ`` tensor, rebuilt when ``occ`` is edited in place or another
+``words``, ``bsize`` or ``vpu`` comes with it; a call then checks the
+rays, makes one (4, N) allocation and one (N,) bool allocation, and
+launches once, on the current stream.
 """
 
 from __future__ import annotations
@@ -70,15 +78,29 @@ class PackedVolume(NamedTuple):
     vpu: float
 
 
+def brick_bits(occ: torch.Tensor) -> torch.Tensor:
+    """(NB,) brick flags -> int32 (uint32 bits) bitmap on the flags'
+    device: bit b % 32 of word b // 32 is set iff occ[b] != 0; the words
+    are padded with zeros to a multiple of 4 (whole 16-byte rows)."""
+    flags = (occ.reshape(-1) != 0).to(torch.int64)
+    nw = -(-flags.numel() // 128) * 4
+    flags = torch.nn.functional.pad(flags, (0, nw * 32 - flags.numel()))
+    shifts = torch.arange(32, device=occ.device)
+    words = (flags.reshape(nw, 32) << shifts).sum(dim=1)
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(torch.int32)
+
+
 def pack_volume(grid: np.ndarray, vpu: float, device="cuda") -> PackedVolume:
     """(Z, Y, X) uint8 grid -> brick occupancy and bit words (the JAX
-    `pack_volume` words transposed to one 64-byte row per brick)."""
+    `pack_volume` words transposed to one 64-byte row per brick); the
+    kernel's brick bitmap and launch arguments are built here and kept on
+    ``occ``."""
     matb, bsize = brick_bytes(grid)
     words = occupancy_words(matb)
-    occ = (words != 0).any(axis=1).astype(np.int32)
-    return PackedVolume(occ=torch.tensor(occ, device=device),
-                        words=torch.tensor(words, device=device),
-                        bsize=bsize, vpu=float(vpu))
+    occ = torch.tensor((words != 0).any(axis=1).astype(np.int32), device=device)
+    words = torch.tensor(words, device=device)
+    _launch_args(occ, words, bsize, vpu, occ.device)
+    return PackedVolume(occ=occ, words=words, bsize=bsize, vpu=float(vpu))
 
 
 # ---------------------------------------------------------------------------
@@ -257,13 +279,52 @@ def trace_coherent_plain(occ, words, o_l, d_l, bsize, vpu, stats=None):
 # Kernel launcher
 # ---------------------------------------------------------------------------
 
+class _Params(ctypes.Structure):
+    """coherent.cu's CoherentParams (occ and nwords are read by the design
+    trials of tools/torch_coherent_trials.py)."""
+    _fields_ = [("bits", ctypes.c_void_p), ("occ", ctypes.c_void_p),
+                ("words", ctypes.c_void_p), ("nb", ctypes.c_int * 3),
+                ("geo", ctypes.c_float * 7), ("nwords", ctypes.c_int),
+                ("device", ctypes.c_int)]
+
+
+class _Launch(NamedTuple):
+    key: tuple              # (occ version, bsize, vpu, device) it was built for
+    words: torch.Tensor
+    bits: torch.Tensor
+    params: _Params
+    addr: int               # address of params
+
+
+def _launch_args(occ, words, bsize, vpu, device) -> _Launch:
+    """The volume's launch arguments, kept on ``occ`` (attribute
+    `_vt_coherent`) and rebuilt when ``occ`` was edited in place or
+    ``words``, ``bsize``, ``vpu`` or the device differ; the tables are
+    checked when they are built."""
+    key = (occ._version, tuple(bsize), vpu, device)
+    la = getattr(occ, "_vt_coherent", None)
+    if la is not None and la.words is words and la.key == key:
+        return la
+    nb = bsize[0] * bsize[1] * bsize[2]
+    _build.check("occ", occ, torch.int32, (nb,), device)
+    _build.check("words", words, torch.int32, (nb, 16), device)
+    bits = brick_bits(occ)
+    g = _geometry(bsize, vpu)
+    params = _Params(bits.data_ptr(), occ.data_ptr(), words.data_ptr(),
+                     (ctypes.c_int * 3)(*bsize),
+                     (ctypes.c_float * 7)(g["vpu"], g["rvpu"], g["bpu"], g["rbpu"],
+                                          *g["size"]),
+                     bits.numel(), device.index or 0)
+    la = _Launch(key, words, bits, params, ctypes.addressof(params))
+    occ._vt_coherent = la
+    return la
+
+
 def _lib():
     lib = _build.load("coherent")
     if not getattr(lib, "_vt_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.vt_coherent.argtypes = [p, p, ctypes.POINTER(ctypes.c_int),
-                                    ctypes.POINTER(ctypes.c_float), p, p, i,
-                                    p, p, p, p, p, p]
+        lib.vt_coherent.argtypes = [p, p, p, i, p, p, p]
         lib.vt_coherent.restype = i
         lib.vt_error_string.argtypes = [i]
         lib.vt_error_string.restype = ctypes.c_char_p
@@ -277,32 +338,26 @@ def trace_coherent(occ, words, o_l, d_l, bsize, vpu):
     occ, words: a `PackedVolume`'s tables on the rays' device.  Returns a
     dict of (N,) tensors: t (BIG = miss), vox (flat voxel index of the
     brick-padded grid, -1 = miss), ax (axis*2 + step sign > 0; entry
-    axis * 4 on a miss), steps, resolved."""
+    axis * 4 on a miss), steps, resolved (bool).  On the card t, vox, ax
+    and steps are rows of one (4, N) allocation."""
     dev = _build.device_of(o_l)
     if dev.type == "cpu":
         return trace_coherent_plain(occ, words, o_l, d_l, bsize, vpu)
     n = o_l.shape[0]
-    nb = bsize[0] * bsize[1] * bsize[2]
     _build.check("o_l", o_l, torch.float32, (n, 3), dev)
     _build.check("d_l", d_l, torch.float32, (n, 3), dev)
-    _build.check("occ", occ, torch.int32, (nb,), dev)
-    _build.check("words", words, torch.int32, (nb, 16), dev)
     if n >= 2 ** 31:
         raise ValueError(f"{n} rays: the kernel takes fewer than 2**31")
-    g = _geometry(bsize, vpu)
-    geo = (ctypes.c_float * 7)(g["vpu"], g["rvpu"], g["bpu"], g["rbpu"],
-                               *g["size"])
-    t = torch.empty((n,), dtype=torch.float32, device=dev)
-    vox, ax, steps, res = (torch.empty((n,), dtype=torch.int32, device=dev)
-                           for _ in range(4))
+    la = _launch_args(occ, words, bsize, vpu, dev)
+    out = torch.empty((4, n), dtype=torch.int32, device=dev)
+    res = torch.empty((n,), dtype=torch.bool, device=dev)
     if n > 0:                   # an empty grid is not a valid launch
         lib = _lib()
-        with torch.cuda.device(dev):
-            err = lib.vt_coherent(
-                occ.data_ptr(), words.data_ptr(), (ctypes.c_int * 3)(*bsize),
-                geo, o_l.data_ptr(), d_l.data_ptr(), n, t.data_ptr(),
-                vox.data_ptr(), ax.data_ptr(), steps.data_ptr(),
-                res.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        # the current stream's handle, without building a Stream object
+        stream = torch._C._cuda_getCurrentRawStream(dev.index)
+        err = lib.vt_coherent(la.addr, o_l.data_ptr(), d_l.data_ptr(), n,
+                              out.data_ptr(), res.data_ptr(), stream)
         _build.raise_on(lib, err, "coherent")
         KERNEL_LAUNCHES["coherent"] += 1
-    return dict(t=t, vox=vox, ax=ax, steps=steps, resolved=res.bool())
+    t, vox, ax, steps = out.unbind(0)
+    return dict(t=t.view(torch.float32), vox=vox, ax=ax, steps=steps, resolved=res)

@@ -129,12 +129,23 @@ def render_flat_fast(fv: FastVolume, sky_pixels, camera, width, height,
     (bilinear `sample_sky` of ``sky_pixels``, (H, W, 3) on the volume's
     device) on misses, ACES.  Returns image (H, W, 3) float, depth and
     steps (H, W)."""
+    return _flat(fv, sky_pixels, camera, width, height, use_fallback,
+                 coherent.trace_coherent)
+
+
+def render_flat_fast_plain(fv: FastVolume, sky_pixels, camera, width, height):
+    """`render_flat_fast` with B5's plain PyTorch version, on any device."""
+    return _flat(fv, sky_pixels, camera, width, height, False,
+                 coherent.trace_coherent_plain)
+
+
+def _flat(fv, sky_pixels, camera, width, height, use_fallback, trace_fn):
     origins, dirs = rays_for_image(camera, width, height, device=fv.device)
     tiled = width % 32 == 0 and height % 32 == 0
     if tiled:
         origins = tiles_of_image(origins, height, width)
         dirs = tiles_of_image(dirs, height, width)
-    hit = _trace_fast(fv, origins, dirs, use_fallback)
+    hit = _trace_fast(fv, origins, dirs, use_fallback, trace_fn)
     missed = hit.t >= BIG_F32
     sky = sample_sky(SkyDomeData(pixels=sky_pixels), dirs)
     img = aces_approx(torch.where(missed[:, None], sky, hit.albedo))

@@ -8,9 +8,9 @@ environment variable VOXEL_TRACER_ASSET_DIR names a directory that holds
 them (`ASSET_DIR`) and from procedural crates otherwise, then baked
 into one 256^3 grid for the coherent kernel (`profiling_scene_merged`).
 The other benchmark scenes are built here too: the budget rays
-(`budget_scene`), the glass-box stand-in (`glass_box_scene`,
-`glass_box_camera`) and inverse_128_32views' blob and ring views
-(`blob_field`, `ring_views`).
+(`budget_scene`), the coherent kernel's edge-case rays (`edge_rays`), the
+glass-box stand-in (`glass_box_scene`, `glass_box_camera`) and
+inverse_128_32views' blob and ring views (`blob_field`, `ring_views`).
 
 `trace()` records a `torch.profiler` trace of a code block (host and
 device timelines, exported as a Chrome trace) and `annotate()` names a
@@ -156,6 +156,106 @@ def budget_scene(length: int = 4096, n_rays: int = 65536, seed: int = 0):
     d = np.stack([np.ones(n), slope[:, 0], slope[:, 1]], axis=1)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     return g, o.astype(np.float32), d.astype(np.float32), vpu
+
+
+# edge_rays' groups, in order: name -> slice of its rays
+EDGE_RAY_GROUPS = dict(zip(
+    ("axis", "zero", "corner", "edge", "solid", "solid_corner", "face", "far_away",
+     "far_toward", "random"),
+    (slice(a, b) for a, b in ((0, 288), (288, 384), (384, 512), (512, 576), (576, 640),
+                              (640, 704), (704, 768), (768, 800), (800, 832),
+                              (832, 1024)))))
+
+
+def edge_rays(grid: np.ndarray, vpu: float):
+    """Local rays at the edge cases of a brick walk through ``grid`` ((Z,
+    Y, X), padded to whole 8^3 bricks) at ``vpu``, made with numpy from
+    seed 0: 1024 rays in the groups of `EDGE_RAY_GROUPS`, in order:
+
+    - axis: 288 axis-parallel rays, 48 in each of the six directions,
+      entering through a face; their other two coordinates on brick
+      planes, on voxel planes, at voxel centres or anywhere; their zero
+      direction components +0 or -0;
+    - zero: 96 rays with one zero direction component (+0 or -0);
+    - corner: 128 rays through brick corners along the diagonal of a face
+      or of the cube;
+    - edge: 64 rays along a brick's edge line at slopes under 1e-3;
+    - solid, solid_corner: 64 rays each starting at the centre, or the low
+      corner, of a solid voxel, in random directions;
+    - face: 64 rays starting on brick faces inside the volume;
+    - far_away, far_toward: 32 rays each starting near 1e30, away from
+      the volume along their direction (a missed pixel's shadow ray) and
+      toward its centre;
+    - random: 192 rays starting in and around the volume.
+
+    Returns (origins (N, 3), directions (N, 3)) float32."""
+    rng = np.random.RandomState(0)
+    f32 = np.float32
+    nbv = np.array([(n + 7) // 8 for n in grid.shape[::-1]])      # bricks (x, y, z)
+    rbpu, rvpu = f32(8.0 / vpu), f32(1.0 / vpu)
+    size = (nbv * 8 / vpu).astype(np.float32)
+
+    def plane_coords(k):
+        """k points whose coordinates lie on brick planes, on voxel planes,
+        at voxel centres or anywhere inside the extent."""
+        b = rng.randint(0, nbv + 1, (k, 3)).astype(np.float32) * rbpu
+        v = rng.randint(0, nbv * 8 + 1, (k, 3)).astype(np.float32) * rvpu
+        c = (rng.randint(0, nbv * 8, (k, 3)) + f32(0.5)).astype(np.float32) * rvpu
+        r = rng.uniform(0.0, 1.0, (k, 3)).astype(np.float32) * size
+        return np.choose(rng.randint(0, 4, (k, 1)), [b, v, c, r]).astype(np.float32)
+
+    def signed_zeros(k):
+        return np.where(rng.rand(k, 3) < 0.5, -0.0, 0.0).astype(np.float32)
+
+    def unit(d):
+        return (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+
+    def random_dirs(k):
+        return unit(rng.randn(k, 3).astype(np.float32))
+
+    groups = []
+    axis = []                                   # axis-parallel through each face
+    for a in range(3):
+        for sign in (1.0, -1.0):
+            o = plane_coords(48)
+            o[:, a] = -0.25 * size[a] if sign > 0 else 1.25 * size[a]
+            d = signed_zeros(48)
+            d[:, a] = sign
+            axis.append((o, d))
+    groups.append(tuple(np.concatenate(x) for x in zip(*axis)))
+    o = plane_coords(96)                        # one zero component
+    d = rng.randn(96, 3).astype(np.float32)
+    d[np.arange(96), rng.randint(0, 3, 96)] = signed_zeros(96)[:, 0]
+    d = unit(d)
+    groups.append((o - d * f32(0.75) * size.max(), d))
+    corner = rng.randint(0, nbv + 1, (128, 3)).astype(np.float32) * rbpu
+    d = np.where(rng.rand(128, 3) < 0.5, -1.0, 1.0).astype(np.float32)
+    face = rng.rand(128) < 0.5                  # face diagonals: one component 0
+    d[face, rng.randint(0, 3, int(face.sum()))] = 0.0
+    d = unit(d)
+    groups.append((corner - d * f32(2.0) * size.max(), d))
+    o = rng.randint(0, nbv + 1, (64, 3)).astype(np.float32) * rbpu
+    a = rng.randint(0, 3, 64)                   # along brick edge lines
+    d = rng.uniform(-1e-3, 1e-3, (64, 3)).astype(np.float32)
+    d[np.arange(64), a] = np.where(rng.rand(64) < 0.5, -1.0, 1.0)
+    o[np.arange(64), a] = np.where(d[np.arange(64), a] > 0, -0.25, 1.25) * size[a]
+    groups.append((o, unit(d)))
+    zyx = np.argwhere(grid != 0)                # inside solid voxels
+    for off in (0.5, 0.0):
+        pick = zyx[rng.randint(0, len(zyx), 64)] if len(zyx) else np.zeros((64, 3), int)
+        groups.append(((pick[:, ::-1] + f32(off)).astype(np.float32) * rvpu, random_dirs(64)))
+    o = rng.uniform(0.0, 1.0, (64, 3)).astype(np.float32) * size
+    a = rng.randint(0, 3, 64)                   # on brick faces
+    o[np.arange(64), a] = rng.randint(0, nbv[a] + 1).astype(np.float32) * rbpu
+    groups.append((o, random_dirs(64)))
+    d = random_dirs(32)                         # near 1e30
+    groups.append((d * f32(1e30), d))
+    d = random_dirs(32)
+    groups.append((size * f32(0.5) - d * f32(1e30), d))
+    o = rng.uniform(-0.25, 1.25, (192, 3)).astype(np.float32) * size
+    groups.append((o, random_dirs(192)))
+    o, d = (np.concatenate(x).astype(np.float32) for x in zip(*groups))
+    return o, d
 
 
 def glass_box_scene(n: int = 128):
