@@ -59,7 +59,10 @@ them:
 - the `render_vox` example on a .vox file of the glass-box stand-in at
   640x384: flat, lambert and full with --fast (B1; B1 + B2; B1 + B2),
   each against the same frame through the kernels' plain versions and
-  its hit mask against the wavefront frame's.
+  its hit mask against the wavefront frame's;
+- the port's benchmark suite (`python -m voxel_tracer_tpu_torch.bench`
+  with 1 round and 1 profiled frame, every workload in one process):
+  exit code 0 and 15 lines, each held to its plain version and correct.
 
 Each main path runs with the launch counts set to 0 just before it and
 read just after.  It prints one line per check, the seconds each phase
@@ -72,8 +75,9 @@ power limit as nvidia-smi reports them, then
 
 and, as the last line, {"ok": true, "device": {...}}.  `ms` is CUDA-event
 time per call over serialized calls, host work of the wrapper included;
-`device_ms` the kernel's own span per launch in a `torch.profiler` window
-(null where the profiler shows no device events).  `bound_ms` is the
+`device_ms` the kernel's own span per launch in a device-only profiler
+window (`utils.timer.device_window`; null where it shows no device
+events).  `bound_ms` is the
 larger of the bytes the call must move over 3.35 TB/s and its FP32
 operations (counted from this run's data, per-unit counts read off the
 kernel sources) over 67 TFLOP/s, the H100 SXM's published peaks.  The
@@ -122,25 +126,27 @@ import time
 import numpy as np
 import torch
 
+# the suite's timing, scenes and the tolerances of kernel vs plain version
+# (hits, materials, axes and steps equal; depth T_ATOL; image LSB;
+# integrate INT_ATOL and GRAD_RTOL x max|g|): one definition each
+from voxel_tracer_tpu_torch.bench.measure import (SLOPE_RTOL, alternating_rounds,
+                                                  count_host_syncs, cuda_ms, nvidia_smi)
+from voxel_tracer_tpu_torch.bench.workloads import (
+    FRAME_TOL, GRAD_RTOL, HIT_MISMATCH_BUDGET, INT_ATOL, LSB, SF_COLOR_ATOL, SF_GRAD_RTOL,
+    SUN, T_ATOL, T_EPS, WH_SHADOW_ROUNDS, bench_camera, build_multi, diff_scene, multi_camera,
+    multi_scene, whitted_launches)
+from voxel_tracer_tpu_torch.bench.workloads import multi_config as _multi_config
+from voxel_tracer_tpu_torch.bench.workloads import whitted_config as _whitted_config
+# busy time: the union of the kernels' spans in a device-only profiler window
+from voxel_tracer_tpu_torch.utils.timer import device_busy, device_window
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 W, H = 1920, 1088
-SUN = (-0.619501, 0.465931, -0.631765)
 N_RAYS = 1 << 20
-# kernel vs plain version on identical rays: the traversal is the same
-# float32 program, so hits, materials, axes and steps must be equal
-HIT_MISMATCH_BUDGET = 0
-T_ATOL = 1e-5       # depth, kernel vs plain
-LSB = 1             # image, kernel vs plain (expf may differ by an ulp)
-SLOPE_RTOL = 0.10   # per-frame times at two frame counts agree within this
-
-# integrate kernels (B6/B7) vs their plain versions on identical inputs
-INT_ATOL = 1e-5     # color, trans, depth (expf may differ by an ulp)
-GRAD_RTOL = 1e-4    # x max|g|: atomics and index_add_ sum in run-dependent orders
 # render_density_slabs(n_slabs=2) vs render_density_mega (the CPU tests')
 SLAB_ATOL = 5e-5
 SLAB_GRAD_RTOL = 5e-3
 FD_RTOL = 0.05      # central difference vs the kernel gradient
-DIFF_G, DIFF_W, DIFF_VPU, T_EPS = 64, 512, 20.0, 1e-4
 TRAIN_G, TRAIN_VIEWS, TRAIN_PX, TRAIN_VPU = 128, 32, 64, 20.0
 
 # bounds: H100 SXM published peaks (HBM3 rate, FP32 non-tensor rate)
@@ -166,21 +172,6 @@ CAM_OPS_PER_PIXEL = 60          # raygen and shading tail (frame.cuh)
 
 def log(msg):
     print(msg, flush=True)
-
-
-def nvidia_smi():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout
-    return out.strip().splitlines()[0]
-
-
-def bench_camera(theta, aspect):
-    """bench.py's orbit camera."""
-    from voxel_tracer_tpu_torch.models.camera import Camera
-    px = 2.0 * math.cos(theta) + 2.4 * math.sin(theta)
-    pz = -2.4 * math.cos(theta) + 2.0 * math.sin(theta)
-    return Camera.create((px, 1.4, pz), (0.0, 0.0, 0.0), aspect)
 
 
 PHASE_S = {}   # seconds spent in each phase function, summed over its calls
@@ -210,41 +201,6 @@ def bound(nbytes, ops):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_FP32_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def cuda_ms(fn, reps):
-    """Device time per call of ``fn(i)`` over ``reps`` serialized calls."""
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for i in range(reps):
-        fn(i)
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
-
-
-def agreeing_frame_ms(tag, frame, counts, rounds, attempts=3):
-    """Per-frame CUDA-event ms of ``frame(i)`` at two frame counts, and
-    whether they agree within SLOPE_RTOL.  Host-bound frames move with the
-    host by 10-20 % from one second to the next, so the two counts take
-    turns, in alternating order, for ``rounds`` rounds, and each count's
-    per-frame ms is its mean over its rounds: both sample the same stretch
-    of host time.  A pair that disagrees is measured again, up to
-    ``attempts`` pairs."""
-    for _attempt in range(attempts):
-        per = ([], [])
-        for r in range(rounds):
-            for j in ((0, 1) if r % 2 == 0 else (1, 0)):
-                per[j].append(cuda_ms(frame, counts[j]))
-        ms = [float(np.mean(p)) for p in per]
-        agree = abs(ms[1] - ms[0]) <= SLOPE_RTOL * ms[1]
-        if agree:
-            break
-        log(f"[{tag}] timing {ms[0]:.4f} vs {ms[1]:.4f} ms/frame disagree (rounds "
-            f"{[round(v, 1) for v in per[0]]} and {[round(v, 1) for v in per[1]]}); again")
-    return ms, agree
 
 
 def compare_frames(tag, k, p):
@@ -481,9 +437,6 @@ def phase_flat(tag, mv, cam):
     return compare_frames(tag, k, p)
 
 
-FRAME_TOL = {"image": LSB, "depth": T_ATOL, "irradiance": T_ATOL}   # others: equal
-
-
 def compare_frame_fields(tag, k, p):
     """A flat or lambert frame dict (render_mega's, render_lambert_mega's
     or render_vox's) vs the same frame through the plain versions: hit
@@ -572,22 +525,6 @@ def phase_timing(mv):
 # ---------------------------------------------------------------------------
 # Training slice: the integrate kernels B6 / B7 and Trainer.fit
 # ---------------------------------------------------------------------------
-
-def diff_scene():
-    """diff_lambert_512 (bench_suite.py:183-210) made with numpy: the 64^3
-    blob and 512x512 camera rays in 32x32-pixel tile order, taken as
-    volume-local rays, with random targets."""
-    from voxel_tracer_tpu_torch.models.camera import Camera, rays_for_image
-    from voxel_tracer_tpu_torch.ops.cuda import diffint
-    from voxel_tracer_tpu_torch.utils.profiling import blob_field
-    sigma, albedo = (torch.from_numpy(x).cuda() for x in blob_field(DIFF_G, 0, 40.0, 0.25))
-    cam = Camera.create((2.0, 1.4, -2.4), (0.0, 0.0, 0.0), 1.0)
-    o, d = (diffint.tile_raster(x, DIFF_W, DIFF_W).contiguous()
-            for x in rays_for_image(cam, DIFF_W, DIFF_W))
-    n = o.shape[0]
-    target = torch.from_numpy(np.random.RandomState(7).rand(n, 3).astype(np.float32)).cuda()
-    return dict(sigma=sigma, albedo=albedo, o=o, d=d, target=target, vpu=DIFF_VPU)
-
 
 def _packed(sigma, albedo):
     from voxel_tracer_tpu_torch.ops.cuda import diffint
@@ -751,28 +688,15 @@ def phase_slabs(scene):
 
 def kernel_device_ms(fn, reps, name):
     """Mean device time of the kernels whose name contains ``name`` over
-    ``reps`` calls of fn(), from torch.profiler's kernel spans; a window
-    that shows none of them is profiled again, up to 3 windows (None if
-    none shows device events)."""
-    from torch.profiler import ProfilerActivity, profile
+    ``reps`` calls of fn(), from the profiler's kernel spans
+    (`utils.timer.device_window`); a window that shows none of them is
+    profiled again, up to 3 windows (None if none shows device events)."""
     for _ in range(3):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        spans = [e.time_range.end - e.time_range.start for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
+        _wall, events = device_window(lambda: [fn() for _ in range(reps)])
+        spans = [b - a for n, a, b in events if name in n]
         if spans:
             return sum(spans) / len(spans) / 1e3
     return None
-
-
-def device_busy(fn):
-    """(wall ms, device-busy ms or None, kernels) of fn(): the port's
-    `utils.timer.device_busy`."""
-    from voxel_tracer_tpu_torch.utils.timer import device_busy as busy
-    return busy(fn)
 
 
 @timed_phase
@@ -1411,12 +1335,13 @@ def phase_new_timing(kr, api, ind, mv, o_t, d_t):
 
 WH_W, WH_H = 1280, 768          # bench_suite.py full_whitted_720p
 WH_SMALL_W, WH_SMALL_H = 320, 192
-WH_BOUNCES, WH_GLASS_REFL, WH_SHADOW_ROUNDS = 3, 2, 2
+WH_BOUNCES, WH_GLASS_REFL = 3, 2
 # orbit angle: off the grid's boundary planes (at 0 the camera sits in the
 # plane of the grid's far z face, where grazing rays split between float
 # pipelines), looking through the grid's far corner into the scene
 WH_THETA = 0.05
-WH_ROUNDS = 3                   # frame timing: the two counts in turns
+WH_ROUNDS = 6                   # frame timing: the two counts in turns (an even count:
+                                # a linear drift of the host cancels between them)
 # the kernel frame vs the port's wavefront Renderer: the CPU tests' pinned
 # budgets (tests/test_torch_renderer.py), as shares of the frame's pixels
 WH_COLOR_MISMATCH_SHARE = 130 / 3072    # pixels over 5 % relative error
@@ -1426,18 +1351,9 @@ WH_HIT_COUNT_SHARE = 4 / 3072
 
 
 def whitted_config(width, height, **kw):
-    from voxel_tracer_tpu_torch.renderer import RenderConfig
-    return RenderConfig(width=width, height=height, shading="full",
-                        max_bounces=WH_BOUNCES, glass_reflections=WH_GLASS_REFL,
-                        **{"compact": True, **kw})
+    return _whitted_config(width, height, WH_BOUNCES, WH_GLASS_REFL, **kw)
 
 
-def bench_suite_whitted_launches(n_glass):
-    """bench_suite.py:446-450: trace launches a frame (1 camera + ray lists)
-    when every stage runs."""
-    glass_sub = WH_GLASS_REFL * n_glass + (WH_GLASS_REFL - 1) * (1 + 2 * n_glass)
-    return (1 + WH_BOUNCES * 3 * WH_SHADOW_ROUNDS
-            + (WH_BOUNCES - 1) * ((1 + 2 * n_glass) + glass_sub))
 
 
 def check_whitted_frame(tag, out, width, height):
@@ -1526,7 +1442,8 @@ def phase_whitted(device="cuda", size=(WH_W, WH_H), small=(WH_SMALL_W, WH_SMALL_
     if device != "cpu":
         torch.cuda.synchronize()
     launches = dict(mega.KERNEL_LAUNCHES)
-    expected = bench_suite_whitted_launches(len(isect.glass_ids))
+    expected = whitted_launches(len(isect.glass_ids), WH_BOUNCES, WH_GLASS_REFL,
+                                WH_SHADOW_ROUNDS)
     frac, shares = check_whitted_frame("whitted", out, w, h)
     log(f"[whitted] render_whitted_mega at {w}x{h}, shading full, {WH_BOUNCES} bounces, "
         f"{WH_GLASS_REFL} glass reflections, {WH_SHADOW_ROUNDS} shadow rounds, compact: "
@@ -1584,7 +1501,8 @@ def phase_whitted(device="cuda", size=(WH_W, WH_H), small=(WH_SMALL_W, WH_SMALL_
         return render_whitted_mega(isect, sd, cams[i % 16], w, h, 0, config=cfg)
 
     frame(0)
-    ms, agree = agreeing_frame_ms("whitted", frame, counts, WH_ROUNDS)
+    r = alternating_rounds(frame, counts, WH_ROUNDS, log=lambda m: log(f"[whitted] {m}"))
+    ms, agree = r.ms, r.agree
     slope = (ms[1] * counts[1] - ms[0] * counts[0]) / (counts[1] - counts[0])
     # RenderConfig.compact=False (the default) shades every primary ray at
     # every stage with no host sync for a live count
@@ -1677,19 +1595,15 @@ def phase_lambert_accumulate(mv):
 
 MU_W, MU_H = 1280, 768                 # game_demo's frame
 MU_SMALL_W, MU_SMALL_H = 320, 192
-MU_BOUNCES, MU_SHADOW_ROUNDS = 2, 2    # game_demo: --bounces 2, shadow_rounds 2
+MU_BOUNCES, MU_SHADOW_ROUNDS = 2, WH_SHADOW_ROUNDS   # game_demo: --bounces 2, shadow_rounds 2
 MU_FULL_PLAIN_S = 15.0                 # hold the 1280x768 frame to the plain one when
                                        # its predicted time is under this
 MU_EDITS = 200
 MU_COUNTS, MU_ROUNDS = (1, 3), 8       # frame timing: 32 frames, the counts in turns
 GAME_FRAMES = 14                       # game_demo fires every other frame
-MU_TARGET, MU_OFFSET = (1.0, 0.8, -1.5), (4.0, 2.0, 4.0)   # multi_camera's orbit
 SF_W = 512                             # BASELINE config 2: 512^2 diff. Lambertian
 SF_STEPS = 20
-SF_GRAD_RTOL = 1e-6                    # x max|g|: palette[mat]'s backward sorts the indices,
-                                       # so both paths sum each row in one order
 SF_MIN_MATERIALS = 200                 # materials with a gradient in the varied copy
-SF_COLOR_ATOL = 1e-6
 SF_WAVEFRONT_ATOL = 1e-4               # vs the wavefront on pixels both hit, same material
 SF_WAVEFRONT_SHARE = 0.99              # of those pixels within SF_WAVEFRONT_ATOL
 
@@ -1759,46 +1673,8 @@ def replay_lists(tag, lists):
                 bound=bnd, err=err)
 
 
-def multi_scene():
-    """make_drone_scene's default scene (procedural stand-ins unless
-    VOXEL_TRACER_ASSET_DIR names the reference's assets): the glass box and
-    four drones turned to yaws != 0 as Enemy.tick sets them, one live laser
-    capsule toward drone 1 and seven parked ones (game_demo's 8 slots)."""
-    from voxel_tracer_tpu_torch.game.enemy import _yaw_matrix
-    from voxel_tracer_tpu_torch.ops.cuda.multi import make_drone_scene
-    vols, scene = make_drone_scene()
-    for i, v in enumerate(vols[1:]):
-        v.set_rotation(_yaw_matrix(0.4 + 0.9 * i))
-    scene.add_capsule((2.6, 2.9, -2.2), tuple(vols[2].pos), 0.02)
-    far = np.array([1e5, 1e5, 1e5], np.float32)
-    for _ in range(7):
-        scene.add_capsule(far, far + np.array([0, 0, 0.01], np.float32), 0.02)
-    return vols, scene
-
-
-def multi_camera(theta, width, height):
-    """A camera orbiting MU_TARGET (angle 10 theta about y): at theta = 0
-    it sees the glass box, the mirror plate's face, the four drones and
-    the laser (stand-in layout; outside every volume's grid)."""
-    from voxel_tracer_tpu_torch.models.camera import Camera
-    a = theta * 10.0
-    ox, oy, oz = MU_OFFSET
-    pos = (MU_TARGET[0] + ox * math.cos(a) - oz * math.sin(a), MU_TARGET[1] + oy,
-           MU_TARGET[2] + ox * math.sin(a) + oz * math.cos(a))
-    return Camera.create(pos, MU_TARGET, width / height)
-
-
 def multi_config(width, height):
-    from voxel_tracer_tpu_torch.renderer import RenderConfig
-    return RenderConfig(width=width, height=height, shading="full", max_bounces=MU_BOUNCES,
-                        glass_reflections=WH_GLASS_REFL, compact=True)
-
-
-def build_multi(mvs, **kw):
-    from voxel_tracer_tpu_torch.ops.cuda.multi import MultiMegaIntersector
-    from voxel_tracer_tpu_torch.ops.cuda.whitted import MegaIntersector
-    return MultiMegaIntersector([MegaIntersector(mv, shadow_rounds=MU_SHADOW_ROUNDS,
-                                                 compact=True, **kw) for mv in mvs])
+    return _multi_config(width, height, MU_BOUNCES)
 
 
 def check_tables_equal(tag, isect):
@@ -1891,7 +1767,6 @@ def phase_multi(device="cuda", size=(MU_W, MU_H), small=(MU_SMALL_W, MU_SMALL_H)
     predicted under MU_FULL_PLAIN_S), the wavefront Renderer with
     exact_fallback at 320x192, a moved drone, the frame's B2 lists alone,
     O(1) edits, frame time."""
-    from voxel_tracer_tpu_torch.examples.game_demo import count_host_syncs
     from voxel_tracer_tpu_torch.models.volume import VoxelVolume
     from voxel_tracer_tpu_torch.ops.cuda import mega
     from voxel_tracer_tpu_torch.ops.cuda.multi import MultiMegaIntersector, render_whitted_multi
@@ -1988,7 +1863,8 @@ def phase_multi(device="cuda", size=(MU_W, MU_H), small=(MU_SMALL_W, MU_SMALL_H)
 
     frame(0)
     counts = MU_COUNTS
-    ms, agree = agreeing_frame_ms("multi", frame, counts, MU_ROUNDS)
+    r = alternating_rounds(frame, counts, MU_ROUNDS, log=lambda m: log(f"[multi] {m}"))
+    ms, agree = r.ms, r.agree
     before = mega.KERNEL_LAUNCHES["mega_rays"]
     wall, busy, kernels = device_busy(lambda: [frame(i) for i in range(3)])
     per_frame = (mega.KERNEL_LAUNCHES["mega_rays"] - before) / 3
@@ -2427,6 +2303,43 @@ def phase_render_vox():
     return dict(res, err=err)
 
 
+# the suite's timed rounds of each frame count and profiled frames here
+# (its defaults 5 and 8): what checks every workload within this script's
+# time limit
+SUITE_ROUNDS, SUITE_PROFILE_FRAMES = 1, 1
+SUITE_TIMEOUT_S = 600
+
+
+@timed_phase
+def phase_suite(rounds=SUITE_ROUNDS, profile_frames=SUITE_PROFILE_FRAMES):
+    """[suite] The port's benchmark, `python -m voxel_tracer_tpu_torch.bench`
+    (every workload, one after the other in one process, `rounds` timed
+    rounds of each frame count, `profile_frames` in the profiler window),
+    in a subprocess: exit code 0, one line a workload, every line correct.
+    Each line is printed here."""
+    from voxel_tracer_tpu_torch.bench.workloads import WORKLOADS
+    torch.cuda.empty_cache()
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    args = ["--rounds", str(rounds), "--profile-frames", str(profile_frames), "--one-process"]
+    proc = subprocess.run([sys.executable, "-m", "voxel_tracer_tpu_torch.bench", *args],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=SUITE_TIMEOUT_S)
+    lines = []
+    for text in proc.stdout.splitlines():
+        if text.startswith("{"):
+            lines.append(json.loads(text))
+            log(f"[suite] {text}")
+    names = [ln.get("metric") for ln in lines]
+    log(f"[suite] python -m voxel_tracer_tpu_torch.bench {' '.join(args)}: exit code "
+        f"{proc.returncode}, {len(lines)} lines in {time.perf_counter() - t0:.1f} s; "
+        f"correct: {[ln.get('correct') for ln in lines]}")
+    require(proc.returncode == 0, f"the suite exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    require(names == list(WORKLOADS), f"the suite's lines are {names}")
+    require(all(ln.get("correct") is True for ln in lines), "a suite line is not correct")
+    return lines
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2481,6 +2394,7 @@ def main():
     surf = phase_surface(vol)
     par = phase_parallel()
     rv = phase_render_vox()
+    phase_suite()
 
     log(f"[phases] seconds: {json.dumps({k: round(v, 1) for k, v in PHASE_S.items()})}")
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")

@@ -8,8 +8,9 @@ records each frame's host-clock ms (synchronized) and the ms Python's
 garbage collector spent inside it.  Then it resamples the recorded times
 in blocks of ``--block`` consecutive frames (the noise drifts over a few
 seconds) and reports, for several (frame counts, rounds, statistic)
-designs of `chip_smoke.agreeing_frame_ms`, the share of simulated attempts
-whose two per-frame times differ by more than `chip_smoke.SLOPE_RTOL`.
+designs of `voxel_tracer_tpu_torch/bench/measure.alternating_rounds`, the
+share of simulated attempts whose two per-frame times differ by more than
+`chip_smoke.SLOPE_RTOL`.
 
 Prints the frame times, the GC time, and a JSON summary as the last line.
 

@@ -40,10 +40,11 @@ import argparse
 import json
 import sys
 import time
-import warnings
 
 import numpy as np
 import torch
+
+from voxel_tracer_tpu_torch.bench.measure import count_host_syncs
 
 N_CAPSULES = 8          # laser segment slots (scene.cpp:21-24)
 TIMED_FRAMES = 8        # frozen-state frames timed with CUDA events
@@ -157,21 +158,6 @@ def frame_inputs(game, scene, vols, sd, device, w, h):
     sd = sd._replace(prims=build_prims(scene.spheres, scene.capsules, device))
     transforms = [(v.rot, v.pos) for v in vols]
     return game.player.camera(w / h), transforms, sd
-
-
-def count_host_syncs(fn):
-    """Host syncs of ``fn()`` on a CUDA device: the synchronizing calls
-    PyTorch's sync debug mode reports (device-to-host copies, `nonzero`,
-    `.item()`)."""
-    prev = torch.cuda.get_sync_debug_mode()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode(1)
-        try:
-            fn()
-        finally:
-            torch.cuda.set_sync_debug_mode(prev)
-    return sum("synchronizing" in str(c.message) for c in caught)
 
 
 def play(args):

@@ -529,18 +529,25 @@ def _rays(origin_l, dir_l):
             dir_l.detach().float().contiguous())
 
 
+# the launchers of the autograd Functions: the kernels' wrappers, or their
+# plain versions for the `*_plain` renderers
+_KERNEL_MARCH = (integrate_fwd_records, integrate_bwd_records)
+_PLAIN_MARCH = (integrate_fwd_plain, integrate_bwd_plain)
+
+
 class _Mega(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, sigma, albedo, origin_l, dir_l, vpu, t_eps):
+    def forward(ctx, sigma, albedo, origin_l, dir_l, vpu, t_eps, march):
+        fwd, _bwd = march
         bsize = brick_dims(sigma.shape)
         rec = pack_records(sigma, albedo)
         occ = occ_words(rec[:, 0])
         o, d = _rays(origin_l, dir_l)
-        cr, cg, cb, tr, dp, fl = integrate_fwd_records(
+        cr, cg, cb, tr, dp, fl = fwd(
             0, occ, o, d, _init_carry(o.shape[0], o.device), rec,
             bsize=bsize, vpu=vpu, t_eps=t_eps)
         ctx.save_for_backward(o, d, occ, rec, cr, cg, cb, tr, dp)
-        ctx.args = (bsize, vpu, t_eps, tuple(sigma.shape))
+        ctx.args = (bsize, vpu, t_eps, tuple(sigma.shape), march)
         flags = fl & 1
         ctx.mark_non_differentiable(flags)
         return torch.stack([cr, cg, cb], dim=-1), tr, dp, flags
@@ -548,12 +555,12 @@ class _Mega(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_color, g_trans, g_depth, _g_flags):
         o, d, occ, rec, *totals = ctx.saved_tensors
-        bsize, vpu, t_eps, shape = ctx.args
-        grad = integrate_bwd_records(
+        bsize, vpu, t_eps, shape, (_fwd, bwd) = ctx.args
+        grad = bwd(
             0, occ, o, d, _init_carry(o.shape[0], o.device), rec,
             _cotangents(g_color, g_trans, g_depth), tuple(totals),
             bsize=bsize, vpu=vpu, t_eps=t_eps)
-        return (*_unpack_grads(grad, shape), None, None, None, None)
+        return (*_unpack_grads(grad, shape), None, None, None, None, None)
 
 
 def render_density_mega(sigma, albedo, origin_l, dir_l, vpu,
@@ -568,7 +575,19 @@ def render_density_mega(sigma, albedo, origin_l, dir_l, vpu,
     integrates every ray (see the module docstring).  `tile_rows` and
     `interpret` are accepted and ignored."""
     color, trans, depth, flags = _Mega.apply(sigma, albedo, origin_l, dir_l,
-                                             float(vpu), float(t_eps))
+                                             float(vpu), float(t_eps),
+                                             _KERNEL_MARCH)
+    return {"color": color, "trans": trans, "depth": depth, "flags": flags}
+
+
+def render_density_mega_plain(sigma, albedo, origin_l, dir_l, vpu,
+                              t_eps: float = 0.0):
+    """Plain PyTorch version of `render_density_mega` (forward and
+    backward on `integrate_fwd_plain` / `integrate_bwd_plain`), on any
+    device."""
+    color, trans, depth, flags = _Mega.apply(sigma, albedo, origin_l, dir_l,
+                                             float(vpu), float(t_eps),
+                                             _PLAIN_MARCH)
     return {"color": color, "trans": trans, "depth": depth, "flags": flags}
 
 
@@ -592,7 +611,8 @@ def _slab_inputs(rec, o, vpu, n_slabs, bsize):
 
 class _Slabs(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, sigma, albedo, origin_l, dir_l, vpu, n_slabs, t_eps):
+    def forward(ctx, sigma, albedo, origin_l, dir_l, vpu, n_slabs, t_eps, march):
+        fwd, _bwd = march
         bsize = brick_dims(sigma.shape)
         rec = pack_records(sigma, albedo)
         o, d = _rays(origin_l, dir_l)
@@ -605,7 +625,7 @@ class _Slabs(torch.autograd.Function):
             for s in order:
                 ent[s] = state
                 o_s, r, occ = slabs[s]
-                cr, cg, cb, tr, dp, _ = integrate_fwd_records(
+                cr, cg, cb, tr, dp, _ = fwd(
                     cls, occ, o_s, d, state, r, bsize=sub, vpu=vpu,
                     t_eps=t_eps)
                 state = (tr, cr, cg, cb, dp)
@@ -616,7 +636,7 @@ class _Slabs(torch.autograd.Function):
                             for a, b in zip(finals[1], finals[-1]))
         saved = [x for cls in (1, -1) for ent in entries[cls] for x in ent]
         ctx.save_for_backward(o, d, rec, Cr, Cg, Cb, T, D, *saved)
-        ctx.args = (bsize, vpu, n_slabs, t_eps, tuple(sigma.shape))
+        ctx.args = (bsize, vpu, n_slabs, t_eps, tuple(sigma.shape), march)
         flags = torch.zeros_like(T, dtype=torch.int32)
         ctx.mark_non_differentiable(flags)
         return torch.stack([Cr, Cg, Cb], dim=-1), T, D, flags
@@ -625,7 +645,7 @@ class _Slabs(torch.autograd.Function):
     def backward(ctx, g_color, g_trans, g_depth, _g_flags):
         o, d, rec, *rest = ctx.saved_tensors
         totals, saved = tuple(rest[:5]), rest[5:]
-        bsize, vpu, n_slabs, t_eps, shape = ctx.args
+        bsize, vpu, n_slabs, t_eps, shape, (_fwd, bwd) = ctx.args
         entries = {cls: [tuple(saved[(k * n_slabs + s) * 5:
                                      (k * n_slabs + s + 1) * 5])
                          for s in range(n_slabs)]
@@ -635,13 +655,12 @@ class _Slabs(torch.autograd.Function):
         grads = []
         for s, (o_s, r, occ) in enumerate(slabs):
             # gradients add across the two dz classes; slabs own disjoint rows
-            g1, g2 = (integrate_bwd_records(cls, occ, o_s, d, entries[cls][s],
-                                            r, cts, totals, bsize=sub,
-                                            vpu=vpu, t_eps=t_eps)
+            g1, g2 = (bwd(cls, occ, o_s, d, entries[cls][s], r, cts, totals,
+                          bsize=sub, vpu=vpu, t_eps=t_eps)
                       for cls in (1, -1))
             grads.append(g1 + g2)
         return (*_unpack_grads(torch.cat(grads), shape), None, None, None, None,
-                None)
+                None, None)
 
 
 def render_density_slabs(sigma, albedo, origin_l, dir_l, vpu,
@@ -657,5 +676,14 @@ def render_density_slabs(sigma, albedo, origin_l, dir_l, vpu,
     are accepted and ignored."""
     color, trans, depth, flags = _Slabs.apply(
         sigma, albedo, origin_l, dir_l, float(vpu), int(n_slabs),
-        float(t_eps))
+        float(t_eps), _KERNEL_MARCH)
+    return {"color": color, "trans": trans, "depth": depth, "flags": flags}
+
+
+def render_density_slabs_plain(sigma, albedo, origin_l, dir_l, vpu,
+                               n_slabs: int = 8, t_eps: float = 0.0):
+    """Plain PyTorch version of `render_density_slabs`, on any device."""
+    color, trans, depth, flags = _Slabs.apply(
+        sigma, albedo, origin_l, dir_l, float(vpu), int(n_slabs),
+        float(t_eps), _PLAIN_MARCH)
     return {"color": color, "trans": trans, "depth": depth, "flags": flags}

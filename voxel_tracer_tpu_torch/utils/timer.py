@@ -4,7 +4,8 @@ analog), plus a device timer for benchmarks.
 Counterpart of `voxel_tracer_tpu/utils/timer.py`.  PyTorch returns from a
 CUDA call before the card has run it, so `_force_sync` waits for the
 card, `device_time` times serialized calls with CUDA events, and
-`device_busy` reads the card's busy time from `torch.profiler`.
+`device_busy` reads the card's busy time from a profiler window that
+records the card's activity only (`device_window`, `busy_ms`).
 """
 
 from __future__ import annotations
@@ -100,22 +101,49 @@ def device_time(fn, *args, warmup: int = 2, iters: int = 10):
     return start.elapsed_time(end) / 1e3 / iters, out
 
 
-def device_busy(fn):
-    """(wall ms, device-busy ms or None, kernels) of ``fn()`` on the card
-    under `torch.profiler`: busy is the union of the device kernels'
-    spans (None where the profiler shows no device events)."""
-    from torch.profiler import ProfilerActivity, profile
+def busy_ms(events) -> float:
+    """Device-busy ms of (name, start us, end us) events: the length of
+    the union of their spans."""
+    busy, end = 0.0, -float("inf")
+    for a, b in sorted((a, b) for _n, a, b in events):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3
+
+
+def _device_events(results):
+    """(name, start us, end us) of the kernels, copies and sets the card
+    ran in a profiler window, read from its raw Kineto results (cheap: no
+    FunctionEvent tree is built); GPU user annotations (an optimizer's
+    step range, say) are spans over other events and left out."""
+    cuda = torch.autograd.DeviceType.CUDA
+    out = []
+    for e in results.events():
+        if e.device_type() == cuda and not e.is_user_annotation():
+            a = e.start_ns() / 1e3
+            out.append((e.name(), a, a + e.duration_ns() / 1e3))
+    return out
+
+
+def device_window(fn):
+    """(host ms, device events) of ``fn()`` in one profiler window that
+    records the card's activity only: no host op events, which would slow
+    the host and the window.  It is the autograd profiler that
+    `torch.profiler.profile` wraps, whose first start would import the
+    compiler stack (several seconds a process)."""
+    from torch.autograd.profiler import profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(use_device="cuda", use_cpu=False, use_kineto=True) as prof:
         clock = Timer()
         fn()
         torch.cuda.synchronize()
         wall = clock.elapsed() * 1e3
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy, end = 0.0, -float("inf")
-    for a, b in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    return wall, (busy / 1e3 if spans else None), len(spans)
+    return wall, _device_events(prof.kineto_results)
+
+
+def device_busy(fn):
+    """(wall ms, device-busy ms or None, device events) of ``fn()`` in one
+    `device_window` (None where it shows no device events)."""
+    wall, events = device_window(fn)
+    return wall, (busy_ms(events) if events else None), len(events)
