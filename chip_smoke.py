@@ -36,6 +36,17 @@ them:
   for field; the wavefront `Renderer` at 320x192; four accumulated frames;
   frame time compacted and not, device busy share, kernels and B2
   launches a frame; B2 on the frame's own ray lists, replayed alone;
+- the DDA kernel D1 (`csrc/dda.cu`): against the plain DDA (`ops/dda.py`)
+  on 1 M random rays through the bench volume, the budget volume's rays,
+  a medium batch at a 6-step budget (and the same rays in two calls,
+  where the JAX loop's batch rule gives other answers), the glass box's
+  interior (medium) and scan (ignore) rays, shadow rays with seeds of
+  2^31 and above, and stacked grids by oid with a per-ray vpu; then the
+  slice's path at 1280x768 on the glass box scene: the exact Whitted
+  frame (`exact_fallback=True`, its fallback on D1) and the wavefront
+  `Renderer` (full shading, 8 bounces, every traversal on D1), each
+  equal field for field to its plain frame (B1 / B2 / the DDA plain;
+  `composite.PLAIN`) and timed beside it;
 - the reference's default scene: `render_whitted_multi` over five
   separate volumes (`make_drone_scene`: the glass box and four turned
   drones, one laser capsule) with game_demo's config at 1280x768, every
@@ -98,8 +109,12 @@ ms and idle share, and its ray lists replayed: `lists_ms`,
 rays, the bitmap, and the occupancy words and material bytes the list can
 touch, `list_bound_bytes`) and in the default scene's frame (`multi`: the
 same, host syncs a frame, us per O(1) edit, and game_demo's numbers under
-`game`); B1 and B2 their `render_vox` launches and kernel-vs-plain error
-(`render_vox`); B1 its numbers on the surface path (`surface`: launches, colour
+`game`); D1 (`dda`) its 1 M random rays as its own numbers, every list
+under `lists` and the two frames under `exact_whitted` and `wavefront`
+(ms, device busy, kernels, host syncs, D1 launches and device ms a frame,
+the plain frame's ms); B1 and B2 their `render_vox` launches and
+kernel-vs-plain error (`render_vox`); B1 its numbers on the surface path
+(`surface`: launches, colour
 and gradient against the plain versions on the bench grid and a
 palette-varied copy, ms per Adam step on each); B6 and B7
 `dup_warp_step_share` (share of warp-steps in which
@@ -1419,6 +1434,7 @@ def phase_whitted(device="cuda", size=(WH_W, WH_H), small=(WH_SMALL_W, WH_SMALL_
     frame traced by the plain versions at 320x192, equal field for field;
     the port's wavefront Renderer on that frame; four accumulated frames;
     frame time and device busy share."""
+    from voxel_tracer_tpu_torch.ops import composite
     from voxel_tracer_tpu_torch.ops.cuda import mega
     from voxel_tracer_tpu_torch.ops.cuda.whitted import (MegaIntersector, WhittedMegaRenderer,
                                                          render_whitted_mega)
@@ -1476,7 +1492,7 @@ def phase_whitted(device="cuda", size=(WH_W, WH_H), small=(WH_SMALL_W, WH_SMALL_
     exact = MegaIntersector(mv, shadow_rounds=WH_SHADOW_ROUNDS, compact=True,
                             exact_fallback=True)
     k_exact = render_whitted_mega(exact, sd, s_cam, sw, sh, 0, config=s_cfg)
-    r = Renderer(s_cfg, device=device).render(sd, s_cam, frame=0)
+    r = Renderer(s_cfg, device=device, isect=composite.PLAIN).render(sd, s_cam, frame=0)
     compare_whitted_wavefront(f"whitted {sw}x{sh}", k_exact, r)
 
     acc = WhittedMegaRenderer(isect, sd, whitted_config(w, h, accumulate=True))
@@ -1586,6 +1602,318 @@ def phase_lambert_accumulate(mv):
     require(d_flat <= 1e-4, f"lit accumulate is not a fixed point: {d_flat}")
     require(all(v <= T_ATOL for v in dk.values()), f"lit accumulate kernel vs plain {dk}")
 
+
+
+# ---------------------------------------------------------------------------
+# D1: the DDA of ops/dda.py as one kernel, on its own lists and under the
+# slice's two frames (the exact Whitted frame, the wavefront Renderer)
+# ---------------------------------------------------------------------------
+
+DDA_OPS_PER_RAY = 80            # slab test 38, both levels' set-up 42 (dda.cu)
+DDA_OPS_PER_STEP = 8            # compares and add of a step 4, a brick entry's 31 amortized
+DDA_OUT_BYTES = 42              # t, slab tmin / tmax, step sign, mat, axis, steps,
+                                # entry axis, valid, resolved
+DDA_EQUAL = ("mat", "axis", "steps", "entry_axis", "valid", "resolved", "step_sign")
+DDA_T = ("t", "slab_tmin", "slab_tmax")
+DDA_BUDGET_STEPS = 6            # tests/test_torch_dda.py::test_dda_medium_step_budget_exit
+DDA_SHAPE_N = 1 << 18           # rays of the medium, scan, shadow and stacked lists
+DF_SIZE = (WH_W, WH_H)          # the slice's two frames (full_whitted_720p's size)
+DF_SMALL = (WH_SMALL_W, WH_SMALL_H)
+DF_PLAIN_LIMIT_S = 60.0         # a plain frame over this is held at DF_HALF instead
+DF_HALF = (640, 384)
+
+
+def _dirs(rng, n, axis_share=16):
+    """n random unit directions, 1/axis_share of them axis-parallel with
+    zero components of random sign."""
+    d = rng.randn(n, 3).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    k = n // axis_share
+    zeros = np.where(rng.rand(k, 3) < 0.5, -0.0, 0.0).astype(np.float32)
+    zeros[np.arange(k), rng.randint(0, 3, k)] = np.where(rng.rand(k) < 0.5, -1.0, 1.0)
+    d[:k] = zeros
+    return d
+
+
+def _cells_rays(grid, gid, vpu, n, rng):
+    """n local rays from random points inside voxels of id ``gid``,
+    random directions."""
+    cells = np.argwhere(grid == gid)[:, ::-1]
+    pick = cells[rng.randint(0, len(cells), n)]
+    o = ((pick + rng.uniform(0.05, 0.95, (n, 3))) / np.float32(vpu)).astype(np.float32)
+    return o, _dirs(rng, n)
+
+
+def _stacked_grids(n_side=64):
+    """The stacked grids of tests/test_torch_dda.py's oid test at 64^3:
+    a sphere, a noise volume and a smaller sphere of another material."""
+    from voxel_tracer_tpu_torch.models.volume import VoxelVolume
+    z, y, x = np.meshgrid(*[np.arange(n_side)] * 3, indexing="ij")
+    c = (n_side - 1) / 2.0
+    r = np.sqrt((x - c) ** 2 + (y - c) ** 2 + (z - c) ** 2)
+    grids = [np.where(r < 0.4 * n_side, 5, 0).astype(np.uint8),
+             VoxelVolume.noise_filled((n_side,) * 3).grid,
+             np.where(r < 0.3 * n_side, 40, 0).astype(np.uint8)]
+    return grids, np.array([20.0, 16.0, 25.0], np.float32)
+
+
+def dda_lists(vol, o_rand, d_rand, device="cuda", n=DDA_SHAPE_N):
+    """D1's lists: (tag, grid, brick_occ, origins, dirs, vpu, keywords),
+    all on ``device``; ``n`` rays in the glass and stacked lists."""
+    from voxel_tracer_tpu_torch.models.volume import VoxelVolume, compute_brick_occ
+    from voxel_tracer_tpu_torch.utils import profiling
+
+    def dev(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    def tables(grid):
+        return dev(grid.astype(np.int32)), dev(compute_brick_occ(grid))
+
+    out = [("random", *tables(vol.grid), o_rand, d_rand, vol.vpu, {})]
+    g, o, d, vpu = profiling.budget_scene(length=4096, n_rays=65536)
+    out.append(("budget", *tables(g), dev(o), dev(d), vpu, {}))
+    rng = np.random.RandomState(3)
+    nv = VoxelVolume.noise_filled((32, 32, 32))
+    o = (rng.uniform(0.02, 0.98, (n, 3)) * nv.size).astype(np.float32)
+    med = np.where(rng.rand(n) < 0.5, 16, 0).astype(np.int32)
+    out.append(("medium budget", *tables(nv.grid), dev(o), dev(_dirs(rng, n)), nv.vpu,
+                dict(medium=dev(med), max_steps=DDA_BUDGET_STEPS)))
+    merged, _scene = profiling.glass_box_scene(128)
+    gt = tables(merged.grid)
+    o, d = _cells_rays(merged.grid, 4, merged.vpu, n, rng)
+    four = dev(np.full(n, 4, np.int32))
+    out.append(("glass interior", *gt, dev(o), dev(d), merged.vpu, dict(medium=four)))
+    out.append(("glass scan", *gt, dev(o), dev(d), merged.vpu, dict(ignore=four)))
+    o = (rng.uniform(-0.3, 1.3, (n, 3)) * merged.size).astype(np.float32)
+    seed = rng.randint(0, 2 ** 32, n, dtype=np.uint64)
+    seed[:n // 4] |= np.uint64(1 << 31)                      # seeds >= 2**31
+    out.append(("shadow", *gt, dev(o), dev(_dirs(rng, n)), merged.vpu,
+                dict(shadow=True, shadow_seed=dev(seed.astype(np.int64)))))
+    grids, vpus = _stacked_grids()
+    sg = dev(np.stack(grids).astype(np.int32))
+    sb = dev(np.stack([compute_brick_occ(x) for x in grids]))
+    oid = rng.randint(0, 3, n)
+    o = (rng.uniform(-0.3, 1.3, (n, 3)) * (64.0 / vpus[oid])[:, None]).astype(np.float32)
+    d = _dirs(rng, n)
+    med = np.where(rng.rand(n) < 0.5, 5, 0).astype(np.int32)
+    for tag, kw in (("stacked", {}), ("stacked medium", dict(medium=dev(med)))):
+        out.append((tag, sg, sb, dev(o), dev(d), dev(vpus[oid]), dict(kw, oid=dev(oid))))
+    return out
+
+
+def compare_dda(tag, k, p, quiet=False):
+    """D1 against the plain DDA: integer fields, flags and step signs
+    equal, t / slab tmin / slab tmax within T_ATOL.  Returns max |d|."""
+    bad = [f for f in DDA_EQUAL if not torch.equal(k[f], p[f])]
+    err = max(float((k[f] - p[f]).abs().max()) if k[f].numel() else 0.0 for f in DDA_T)
+    if not quiet or bad or err > T_ATOL:
+        log(f"[{tag}] D1 vs plain: {k['t'].numel()} rays, unequal fields {bad}, "
+            f"t / slab max |d| {err:.3g}")
+    require(not bad and err <= T_ATOL, f"{tag}: D1 differs from the plain DDA: {bad}, {err}")
+    return err
+
+
+def d1_device_ms(fn, reps, medium):
+    """D1's device ms a call: the mean span of its pass 1 and, with a
+    medium, of its pass 2 (`kernel_device_ms` each; None if either shows
+    no device events)."""
+    spans = [kernel_device_ms(fn, reps, "dda_kernel")]
+    if medium:
+        spans.append(kernel_device_ms(fn, reps, "dda_exhaust_kernel"))
+    return None if None in spans else sum(spans)
+
+
+def _dda_bound(n, steps, kw, per_ray_vpu, grid, bocc):
+    """Each ray's inputs read and outputs written once; of the grid and the
+    brick table at most one 32-byte sector a step, and never more than the
+    two tables (as `list_bound_bytes`); operations a ray and a step
+    (`DDA_OPS_*`)."""
+    extra = (4 if per_ray_vpu else 0) + (8 if "oid" in kw else 0) + \
+        (4 if "medium" in kw else 0) + (4 if "ignore" in kw else 0) + \
+        (8 if kw.get("shadow") else 0)
+    tables = grid.numel() * grid.element_size() + bocc.numel() * bocc.element_size()
+    nbytes = n * (24 + extra + DDA_OUT_BYTES) + min(SECTOR * steps, tables)
+    return bound(nbytes, n * DDA_OPS_PER_RAY + steps * DDA_OPS_PER_STEP)
+
+
+def dda_split(tag, grid, bocc, o, d, vpu, kw, full_p):
+    """The batch rule: the medium rays that the one-call trace marked
+    exhausted, traced alone, are not all marked (the rays that walked
+    longest run out with the loop).  D1 equals the plain DDA on each part,
+    and the parts differ from the one call."""
+    from voxel_tracer_tpu_torch.ops import dda
+    from voxel_tracer_tpu_torch.ops.cuda import dda as d1
+    out_of_budget = (kw["medium"] > 0) & ~full_p["resolved"]
+    marked = out_of_budget & (full_p["t"] < 1e30)          # exit at the slab tmax
+    stuck = out_of_budget & (full_p["t"] >= 1e30)          # still walking at the end
+    err, changed = 0.0, 0
+    for part in (marked, ~marked):
+        sub = dict(kw, medium=kw["medium"][part])
+        args = (grid, bocc, o[part], d[part], vpu)
+        kp = d1.intersect_volume_local(*args, **sub)
+        pp = dda.intersect_volume_local(*args, **sub)
+        err = max(err, compare_dda(f"{tag} split", kp, pp, quiet=True))
+        changed += int((pp["t"] != full_p["t"][part]).sum())
+    log(f"[{tag}] batch rule: one call marks {int(marked.sum())} exhausted medium rays "
+        f"(exit at the slab tmax) and leaves {int(stuck.sum())} walking; traced apart, "
+        f"{changed} rays change; D1 = plain on both parts")
+    require(int(marked.sum()) > 0 and changed > 0, f"{tag}: the split changes nothing")
+    return err
+
+
+@timed_phase
+def phase_dda(vol, o_rand, d_rand, device="cuda", n=DDA_SHAPE_N):
+    """[dda] D1 against the plain DDA (`ops/dda.py`) on the same CUDA inputs,
+    list by list: timed (events, device, plain), bounded; the batch rule
+    on the medium budget list split in two.  On the CPU (a rehearsal) the
+    wrapper runs the plain DDA and nothing is timed."""
+    from voxel_tracer_tpu_torch.ops import dda
+    from voxel_tracer_tpu_torch.ops.cuda import dda as d1
+    res, err = {}, 0.0
+    for tag, grid, bocc, o, d, vpu, kw in dda_lists(vol, o_rand, d_rand, device, n):
+        args = (grid, bocc, o, d, vpu)
+        k = d1.intersect_volume_local(*args, **kw)
+        p = dda.intersect_volume_local(*args, **kw)
+        err = max(err, compare_dda(tag, k, p))
+        if tag == "medium budget":
+            err = max(err, dda_split(tag, *args, kw, p))
+        if device == "cpu":
+            continue
+        rays, steps = o.shape[0], int(k["steps"].sum())
+        bnd = _dda_bound(rays, steps, kw, isinstance(vpu, torch.Tensor), grid, bocc)
+        ms = cuda_ms(lambda i: d1.intersect_volume_local(*args, **kw), 10)
+        dev = d1_device_ms(lambda: d1.intersect_volume_local(*args, **kw), 3, "medium" in kw)
+        plain_ms = cuda_ms(lambda i: dda.intersect_volume_local(*args, **kw), 1)
+        hits = float((k["t"] < 1e30).float().mean())
+        log(f"[dda] {tag}: {rays} rays, {steps} steps ({steps / rays:.2f} a ray), hit share "
+            f"{hits:.4f}, unresolved {int((~k['resolved']).sum())}; D1 {ms:.4f} ms a call "
+            f"(events), device {'not measured' if dev is None else f'{dev:.4f} ms'}; plain "
+            f"{plain_ms:.1f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}); t max |d| 0 expected")
+        res[tag] = dict(rays=rays, steps=steps, ms=ms, device_ms=dev, plain_ms=plain_ms,
+                        bound_ms=bnd[0], bound_by=bnd[1])
+    return res, err
+
+
+def _frame_numbers(tag, frame, reps):
+    """ms a frame (events, ``reps`` frames), and from one device window of
+    2 frames: busy ms, kernels, D1 launches and D1 device ms a frame; host
+    syncs of one frame."""
+    from voxel_tracer_tpu_torch.bench.measure import label_of
+    from voxel_tracer_tpu_torch.ops.cuda import dda as d1
+    from voxel_tracer_tpu_torch.utils.timer import busy_ms
+    frame(0)
+    ms = cuda_ms(frame, reps)
+    before = d1.KERNEL_LAUNCHES["dda"]
+    _wall, events = device_window(lambda: [frame(i) for i in range(2)])
+    launches = (d1.KERNEL_LAUNCHES["dda"] - before) / 2
+    busy = busy_ms(events) / 2 if events else None
+    d1_ms = sum(b - a for n, a, b in events if label_of(n) == "D1") / 2e3 if events else None
+    syncs = count_host_syncs(lambda: frame(0))
+    log(f"[{tag}] {ms:.4f} ms a frame over {reps} frames (events); device busy "
+        f"{'not measured' if busy is None else f'{busy:.4f} ms'} in {len(events) / 2:.1f} "
+        f"kernels a frame, idle share "
+        f"{'not measured' if busy is None else f'{1.0 - busy / ms:.4f}'}; {syncs} host syncs "
+        f"a frame; D1 {launches:.1f} launches, "
+        f"{'not measured' if d1_ms is None else f'{d1_ms:.4f} ms'} device a frame")
+    return dict(ms=ms, device_busy_ms=busy, kernels_per_frame=len(events) / 2,
+                idle_share=None if busy is None else 1.0 - busy / ms,
+                host_syncs_per_frame=syncs, d1_launches_per_frame=launches,
+                d1_device_ms_per_frame=d1_ms)
+
+
+def _plain_frame(fn, sync):
+    """(frame, host seconds) of one plain frame, ended by ``sync()``."""
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, time.perf_counter() - t0
+
+
+@timed_phase
+def phase_dda_frames(device="cuda", size=DF_SIZE, small=DF_SMALL):
+    """[dda frames] The slice's path at full width, launch counts at 0 just
+    before each frame and read just after: the exact Whitted frame
+    (render_whitted_mega, exact_fallback, full_whitted_720p's configuration)
+    and the wavefront Renderer (RenderConfig's defaults: full shading, 8
+    bounces) on the glass box scene at 1280x768, each equal field for field
+    to its plain frame and timed beside it.  On the CPU (a rehearsal at a
+    small ``size``) nothing is timed and D1 is not launched."""
+    from voxel_tracer_tpu_torch.ops import composite, dda
+    from voxel_tracer_tpu_torch.ops.cuda import dda as d1
+    from voxel_tracer_tpu_torch.ops.cuda import mega
+    from voxel_tracer_tpu_torch.ops.cuda.whitted import MegaIntersector, render_whitted_mega
+    from voxel_tracer_tpu_torch.renderer import RenderConfig, Renderer
+    from voxel_tracer_tpu_torch.utils.profiling import glass_box_camera, glass_box_scene
+    merged, scene = glass_box_scene(128)
+    sd = scene.data(device)
+    mv = mega.MegaVolume(merged, device)
+    on_card = device != "cpu"
+    kw = dict(shadow_rounds=WH_SHADOW_ROUNDS, compact=True, exact_fallback=True)
+    exact = MegaIntersector(mv, **kw)
+    plain = MegaIntersector(mv, trace_fn=mega.trace_rays_plain,
+                            tiles_fn=mega.render_mega_tiles_plain,
+                            dda_fn=dda.intersect_volume_local, **kw)
+    w, h = size
+    res = {}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def whitted(ix, size, theta=WH_THETA):
+        sw, sh = size
+        return render_whitted_mega(ix, sd, glass_box_camera(merged, theta, sw, sh), sw, sh, 0,
+                                   config=whitted_config(sw, sh))
+
+    d1.reset_launch_counts()
+    out = whitted(exact, size)
+    sync()
+    launches = d1.KERNEL_LAUNCHES["dda"]
+    check_whitted_frame("dda frames exact", out, w, h)
+    require(launches > 0 or not on_card, "D1 was not launched on the exact Whitted frame")
+    err = compare_whitted(f"dda frames exact {small[0]}x{small[1]}",
+                          whitted(exact, small), whitted(plain, small))
+    p, plain_s = _plain_frame(lambda: whitted(plain, size), sync)
+    err = max(err, compare_whitted(f"dda frames exact {w}x{h}", out, p))
+    log(f"[dda frames] exact Whitted {w}x{h}: D1 launches {launches}; plain-traced frame "
+        f"(B1, B2 and the DDA plain) in {plain_s:.1f} s")
+    res["exact_whitted"] = dict(launches=launches, plain_ms=plain_s * 1e3, max_abs_err=err)
+    if on_card:
+        res["exact_whitted"].update(_frame_numbers(
+            "dda frames exact", lambda i: whitted(exact, size, WH_THETA + 0.001 * (i % 8)), 4))
+
+    cfg = RenderConfig(width=w, height=h)
+    cam = glass_box_camera(merged, WH_THETA, w, h)
+    d1.reset_launch_counts()
+    k = Renderer(cfg, device=device).render(sd, cam, frame=0)
+    sync()
+    launches = d1.KERNEL_LAUNCHES["dda"]
+    require(launches > 0 or not on_card, "D1 was not launched on the wavefront frame")
+    check_whitted_frame("dda frames wavefront", k, w, h)
+    p, plain_s = _plain_frame(lambda: Renderer(cfg, device=device, isect=composite.PLAIN)
+                              .render(sd, cam, frame=0), sync)
+    held = size
+    if plain_s > DF_PLAIN_LIMIT_S:
+        held = DF_HALF
+        log(f"[dda frames] the plain wavefront frame took {plain_s:.1f} s at {w}x{h}: "
+            f"held at {held[0]}x{held[1]}")
+        h_cfg = RenderConfig(width=held[0], height=held[1])
+        h_cam = glass_box_camera(merged, WH_THETA, *held)
+        k = Renderer(h_cfg, device=device).render(sd, h_cam, frame=0)
+        p, plain_s = _plain_frame(lambda: Renderer(h_cfg, device=device, isect=composite.PLAIN)
+                                  .render(sd, h_cam, frame=0), sync)
+    wf_err = compare_whitted(f"dda frames wavefront {held[0]}x{held[1]}", k, p)
+    log(f"[dda frames] wavefront Renderer {w}x{h} (full shading, {cfg.max_bounces} bounces): "
+        f"D1 launches {launches}; plain-DDA frame at {held[0]}x{held[1]} in {plain_s:.1f} s")
+    res["wavefront"] = dict(launches=launches, plain_ms=plain_s * 1e3, plain_size=list(held),
+                            max_abs_err=wf_err)
+    if on_card:
+        r = Renderer(cfg, device=device)
+        cams = [glass_box_camera(merged, WH_THETA + 0.001 * i, w, h) for i in range(4)]
+        res["wavefront"].update(_frame_numbers(
+            "dda frames wavefront", lambda i: r.render(sd, cams[i % 4], frame=0), 3))
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -1768,6 +2096,7 @@ def phase_multi(device="cuda", size=(MU_W, MU_H), small=(MU_SMALL_W, MU_SMALL_H)
     exact_fallback at 320x192, a moved drone, the frame's B2 lists alone,
     O(1) edits, frame time."""
     from voxel_tracer_tpu_torch.models.volume import VoxelVolume
+    from voxel_tracer_tpu_torch.ops import composite
     from voxel_tracer_tpu_torch.ops.cuda import mega
     from voxel_tracer_tpu_torch.ops.cuda.multi import MultiMegaIntersector, render_whitted_multi
     from voxel_tracer_tpu_torch.ops.cuda.whitted import MegaIntersector
@@ -1821,7 +2150,7 @@ def phase_multi(device="cuda", size=(MU_W, MU_H), small=(MU_SMALL_W, MU_SMALL_H)
 
     exact = build_multi(mvs, exact_fallback=True)
     k_exact = render_whitted_multi(exact, sd, s_cam, sw, sh, 0, config=s_cfg)
-    r = Renderer(s_cfg, device=device).render(sd, s_cam, frame=0)
+    r = Renderer(s_cfg, device=device, isect=composite.PLAIN).render(sd, s_cam, frame=0)
     compare_whitted_wavefront(f"multi {sw}x{sh}", k_exact, r)
     del exact
 
@@ -1993,7 +2322,7 @@ def phase_surface(vol, device="cuda", size=SF_W, steps=SF_STEPS):
     from voxel_tracer_tpu_torch.models.camera import rays_for_image
     from voxel_tracer_tpu_torch.models.scene import Scene
     from voxel_tracer_tpu_torch.models.skydome import SkyDome
-    from voxel_tracer_tpu_torch.ops import diff_surface
+    from voxel_tracer_tpu_torch.ops import composite, diff_surface
     from voxel_tracer_tpu_torch.ops.cuda import mega
     mv = mega.MegaVolume(vol, device)
     mv_v = mega.MegaVolume(palette_varied(vol), device)
@@ -2015,7 +2344,7 @@ def phase_surface(vol, device="cuda", size=SF_W, steps=SF_STEPS):
     sd = Scene(volumes=[vol], skydome=SkyDome.procedural(64, 32)).data(device)
     o, d = rays_for_image(cam, size, size, device=device)
     with torch.no_grad():
-        wf = diff_surface.render_lambert_surface(pal0, sd, o, d)
+        wf = diff_surface.render_lambert_surface(pal0, sd, o, d, isect=composite.PLAIN)
     both = out["hit"] & wf["hit"] & (out["mat"] == wf["mat"])
     dw = (out["color"].detach() - wf["color"]).abs().amax(-1)[both]
     share = float((dw <= SF_WAVEFRONT_ATOL).float().mean())
@@ -2389,6 +2718,8 @@ def main():
     ind = phase_indep(mv, o_rand, d_rand)
     new_times = phase_new_timing(kr, api, ind, mv, o_rand, d_rand)
     wh = phase_whitted()
+    dda_lists_res, dda_err = phase_dda(vol, o_rand, d_rand)
+    dfr = phase_dda_frames()
     mu = phase_multi()
     game = phase_game()
     surf = phase_surface(vol)
@@ -2500,6 +2831,17 @@ def main():
             name=name, route="cuda", source=f"voxel_tracer_tpu_torch/csrc/{src_name}.cu",
             replaces=f"voxel_tracer_tpu/ops/pallas/{line}", launches=launches_n,
             max_abs_err=err, **row(t), library_ms=None, **extra))
+    rnd = dda_lists_res["random"]
+    kernels.append(dict(
+        name="dda", route="cuda", source="voxel_tracer_tpu_torch/csrc/dda.cu",
+        replaces="voxel_tracer_tpu/ops/dda.py:169",
+        launches=dfr["exact_whitted"]["launches"] + dfr["wavefront"]["launches"],
+        max_abs_err=max(dda_err, dfr["exact_whitted"]["max_abs_err"],
+                        dfr["wavefront"]["max_abs_err"]),
+        ms=rnd["ms"], device_ms=rnd["device_ms"], plain_ms=rnd["plain_ms"],
+        bound_ms=rnd["bound_ms"], bound_by=rnd["bound_by"], library_ms=None,
+        lists={k.replace(" ", "_"): v for k, v in dda_lists_res.items()},
+        exact_whitted=dfr["exact_whitted"], wavefront=dfr["wavefront"]))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

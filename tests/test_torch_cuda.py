@@ -18,6 +18,9 @@ plain versions, so hits, voxel/material, axes, steps and resolved flags
 equal; t within 1e-5 (equal on B5's edge rays, its large grid and its
 edited grid, and on the indep volumes that fill the bitmap or walk
 hundreds of bricks); image within 1 LSB (expf in the sky).
+The DDA kernel (D1) against the plain DDA (`ops/dda.py`) in every mode:
+every output equal, t bit for bit (the same float32 program; stochastic
+shadows key on the hit cell).
 """
 
 import numpy as np
@@ -26,8 +29,10 @@ import torch
 
 from voxel_tracer_tpu_torch.models.camera import Camera
 from voxel_tracer_tpu_torch.models.volume import VoxelVolume
+from voxel_tracer_tpu_torch.ops import dda
 from voxel_tracer_tpu_torch.ops.cuda import (coherent, diffint, indep,
                                              integrate, mega, renderer_fast)
+from voxel_tracer_tpu_torch.ops.cuda import dda as dda_kernel
 from voxel_tracer_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
@@ -761,3 +766,86 @@ def test_ray_kernel_zero_direction_rays(cuda):
         assert torch.equal(k[f], p[f]), f
     # rays starting in a solid voxel hit at t = 0; others stop at t = inf
     assert bool(((k["t"] >= mega.BIG) & (k["mat"] != 0)).any())
+
+
+def _dda_case(mode, dev):
+    """(grid, brick_occ, origins, dirs, vpu, keywords) of one D1 mode on a
+    36x20x28 grid (cut bricks) of glass (4), a pillar (40) and a mirror
+    (12), or three stacked 32^3 grids with oid and a per-ray vpu."""
+    from voxel_tracer_tpu_torch.models.volume import compute_brick_occ
+    rng = np.random.RandomState(12)
+    n = 8192
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    d = rng.randn(n, 3).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    d[:n // 16] = 0.0
+    d[np.arange(n // 16), rng.randint(0, 3, n // 16)] = 1.0
+    if mode == "zero_dirs":
+        d = np.where(rng.rand(n, 3) < 0.5, -0.0, 0.0).astype(np.float32)
+    if mode.startswith("stacked"):
+        grids = [VoxelVolume.noise_filled((32, 32, 32)).grid,
+                 _sphere_volume().grid.repeat(2, 0).repeat(2, 1).repeat(2, 2),
+                 VoxelVolume.noise_filled((32, 32, 32), threshold=0.3, material=4).grid]
+        vpus = np.array([20.0, 16.0, 25.0], np.float32)
+        oid = rng.randint(0, 3, n)
+        o = (rng.uniform(-0.3, 1.3, (n, 3)) * (32.0 / vpus[oid])[:, None]).astype(np.float32)
+        kw = dict(oid=t(oid))
+        if mode == "stacked_medium":
+            kw["medium"] = t(np.where(rng.rand(n) < 0.5, 4, 0).astype(np.int32))
+        return (t(np.stack(grids).astype(np.int32)),
+                t(np.stack([compute_brick_occ(g) for g in grids])), t(o), t(d),
+                t(vpus[oid]), kw)
+    g = np.zeros((36, 20, 28), np.uint8)
+    g[6:, 4:, 9:] = 4
+    g[14:20, 8:12, 14:18] = 40
+    g[24:30, 6:9, 20:24] = 12
+    o = rng.uniform(-0.1, 1.9, (n, 3)).astype(np.float32)
+    kw = {}
+    if mode in ("medium", "medium_budget"):
+        kw["medium"] = t(np.where(rng.rand(n) < 0.5, 4, 0).astype(np.int32))
+        if mode == "medium_budget":
+            kw["max_steps"] = 6
+    elif mode == "ignore":
+        kw["ignore"] = t(np.where(rng.rand(n) < 0.75, 4, 0).astype(np.int32))
+    elif mode == "shadow":
+        seed = rng.randint(0, 2 ** 32, n, dtype=np.uint64)
+        seed[:n // 4] |= np.uint64(1 << 31)
+        kw.update(shadow=True, shadow_seed=t(seed.astype(np.int64)))
+    return t(g.astype(np.int32)), t(compute_brick_occ(g)), t(o), t(d), 20.0, kw
+
+
+@pytest.mark.parametrize("mode", ["first_hit", "medium", "medium_budget", "ignore", "shadow",
+                                  "stacked", "stacked_medium", "zero_dirs"])
+def test_dda_kernel_matches_plain(cuda, mode):
+    grid, bocc, o, d, vpu, kw = _dda_case(mode, cuda)
+    before = dda_kernel.KERNEL_LAUNCHES["dda"]
+    k = dda_kernel.intersect_volume_local(grid, bocc, o, d, vpu, **kw)
+    assert dda_kernel.KERNEL_LAUNCHES["dda"] == before + 1
+    p = dda.intersect_volume_local(grid, bocc, o, d, vpu, **kw)
+    torch.cuda.synchronize()
+    assert k.keys() == p.keys()
+    for f in k:
+        assert torch.equal(k[f], p[f]), f
+    if mode != "zero_dirs":
+        assert bool((k["t"] < 1e30).any())
+    if mode == "medium_budget":
+        assert bool((~k["resolved"]).any())
+
+
+def test_dda_kernel_empty_list_and_bad_input(cuda):
+    grid, bocc, o, d, vpu, _kw = _dda_case("first_hit", cuda)
+    before = dda_kernel.KERNEL_LAUNCHES["dda"]
+    e = dda_kernel.intersect_volume_local(grid, bocc, o[:0], d[:0], vpu)
+    assert e["t"].shape == (0,) and e["step_sign"].shape == (0, 3)
+    assert dda_kernel.KERNEL_LAUNCHES["dda"] == before
+    with pytest.raises(TypeError):
+        dda_kernel.intersect_volume_local(grid, bocc, o.double(), d, vpu)
+    with pytest.raises(ValueError):
+        dda_kernel.intersect_volume_local(grid, bocc[:-1], o, d, vpu)
+    with pytest.raises(ValueError):
+        dda_kernel.intersect_volume_local(grid, bocc, o, d, vpu, shadow=True)
+    with pytest.raises(ValueError):
+        dda_kernel.intersect_volume_local(grid, bocc, o, d, torch.ones(5, device=cuda))

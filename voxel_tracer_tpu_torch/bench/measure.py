@@ -58,7 +58,8 @@ NOT_MEASURED = "not measured"
 SYNC_WARNING = "called a synchronizing CUDA operation"   # PyTorch's sync debug mode
 
 # the hand-written kernels by the symbol the profiler prints, and the
-# TPU kernel each replaces (PERF.md's table)
+# TPU kernel (B) or XLA loop (D) each replaces (PERF.md's tables); D1's
+# two passes share its label
 KERNEL_LABELS = {
     "mega_camera_kernel": "B1",
     "mega_rays_kernel": "B2",
@@ -67,6 +68,8 @@ KERNEL_LABELS = {
     "coherent_kernel": "B5",
     "integrate_kernel<false>": "B6",
     "integrate_kernel<true>": "B7",
+    "dda_kernel": "D1",
+    "dda_exhaust_kernel": "D1",
 }
 # a kernel's symbol as the profiler prints it, e.g.
 # "void (anonymous namespace)::integrate_kernel<true>((anonymous namespace)::Params)"
@@ -148,7 +151,7 @@ def quartiles(samples) -> dict:
 
 
 def label_of(kernel_name: str):
-    """The B label of a profiler kernel name, or None for glue."""
+    """The label (B1-B7, D1) of a profiler kernel name, or None for glue."""
     m = _SYMBOL.search(kernel_name)
     return KERNEL_LABELS[m.group(1)] if m else None
 
@@ -158,7 +161,7 @@ def split_events(events, frames, wall_ms) -> dict:
     as (name, start us, end us): busy time (the union of the spans,
     `utils.timer.busy_ms`), idle share against ``wall_ms`` for the
     ``frames`` frames (below 0 where the spans outlast ``wall_ms``),
-    events a frame, device ms a frame by B label, the rest as glue and its
+    events a frame, device ms a frame by label, the rest as glue and its
     TOP_GLUE longest kernels by total device time."""
     busy_ms = _busy_ms(events)
     by_label, glue = {}, {}

@@ -620,7 +620,9 @@ def multiobj_shadow_1080p(device="cuda", seed=0, *, width=1920, height=1088, fra
 
 def _whitted(metric, jax_metric, device, *, width, height, bounces, glass_reflections,
              frames, exact, grid, check_size):
-    """8-10. bench_suite.py:381-470 on render_whitted_mega (B1 + B2)."""
+    """8-10. bench_suite.py:381-470 on render_whitted_mega (B1 + B2; 9's
+    fallback on D1)."""
+    from voxel_tracer_tpu_torch.ops import dda
     from voxel_tracer_tpu_torch.ops.cuda import mega
     from voxel_tracer_tpu_torch.ops.cuda.whitted import MegaIntersector, render_whitted_mega
     merged, scene = profiling.glass_box_scene(grid)
@@ -629,7 +631,8 @@ def _whitted(metric, jax_metric, device, *, width, height, bounces, glass_reflec
     kw = dict(shadow_rounds=WH_SHADOW_ROUNDS, compact=True, exact_fallback=exact)
     isect = MegaIntersector(mv, **kw)
     plain = MegaIntersector(mv, trace_fn=mega.trace_rays_plain,
-                            tiles_fn=mega.render_mega_tiles_plain, **kw)
+                            tiles_fn=mega.render_mega_tiles_plain,
+                            dda_fn=dda.intersect_volume_local, **kw)
 
     def render(ix, i, w, h):
         cam = profiling.glass_box_camera(merged, 0.01 * (i % frames), w, h)

@@ -1,8 +1,8 @@
 """Render a MagicaVoxel scene to PNG: the end-to-end smoke example.
 
 Counterpart of `examples/render_vox.py`.  The default path is the
-wavefront `Renderer`; ``--fast`` runs the CUDA kernels: `render_mega`
-(B1) for flat, `render_lambert_mega` (B1 + B2) for lambert, and
+wavefront `Renderer` (its DDA on the D1 kernel); ``--fast`` runs the
+CUDA kernels: `render_mega` (B1) for flat, `render_lambert_mega` (B1 + B2) for lambert, and
 `render_whitted_mega` on a `MegaIntersector` (B1 + B2) for full.
 
     python -m voxel_tracer_tpu_torch.examples.render_vox --vox model.vox \\
@@ -29,10 +29,11 @@ from voxel_tracer_tpu_torch.utils.framebuffer import write_png
 def render(vox, width, height, mode="lambert", fast=False, cam_pos=(1.2, 1.0, -1.6),
            target=(0.0, 0.0, 0.0), device="cuda", plain=False):
     """One frame of the .vox file at ``vox``; returns the AOV dict (image
-    as float in [0, 1]).  ``plain`` with ``fast``: the same frame through
-    the kernels' plain PyTorch versions, to hold the kernels against."""
+    as float in [0, 1]).  ``plain``: the same frame through the kernels'
+    plain PyTorch versions, to hold the kernels against."""
+    from voxel_tracer_tpu_torch.ops import composite, dda
     cfg = RenderConfig(width=width, height=height, shading=mode)
-    renderer = Renderer(cfg, device=device)
+    renderer = Renderer(cfg, device=device, isect=composite.PLAIN if plain else composite)
     vol = VoxelVolume.from_vox(vox, pos=(0, 0, 0))
     camera = renderer.camera(cam_pos, target)
     if fast and mode == "full":
@@ -40,8 +41,8 @@ def render(vox, width, height, mode="lambert", fast=False, cam_pos=(1.2, 1.0, -1
         from voxel_tracer_tpu_torch.ops.cuda.whitted import (MegaIntersector,
                                                              render_whitted_mega)
         sdata = Scene(volumes=[vol], skydome=SkyDome.procedural()).data(device)
-        fns = (dict(trace_fn=mega.trace_rays_plain, tiles_fn=mega.render_mega_tiles_plain)
-               if plain else {})
+        fns = (dict(trace_fn=mega.trace_rays_plain, tiles_fn=mega.render_mega_tiles_plain,
+                    dda_fn=dda.intersect_volume_local) if plain else {})
         isect = MegaIntersector(mega.MegaVolume(vol, device), shadow_rounds=2, **fns)
         return render_whitted_mega(isect, sdata, camera, width, height, 0, config=cfg)
     if fast:

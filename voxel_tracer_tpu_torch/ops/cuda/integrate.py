@@ -8,7 +8,8 @@ gives.  The JAX function traces every ray a second time through the XLA
 DDA and keeps that result where the Pallas kernel left a ray unresolved;
 here every ray resolves, and with ``use_fallback=True`` only rays whose
 `resolved` is 0 (none, by the kernel's design) are selected with
-`nonzero` and traced through `ops/dda.intersect_volume_local`.
+`nonzero` and traced through D1's wrapper
+(`ops/cuda/dda.intersect_volume_local`).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from voxel_tracer_tpu_torch.models.skydome import SkyDomeData, sample_sky
 from voxel_tracer_tpu_torch.ops import dda
 from voxel_tracer_tpu_torch.ops.composite import HitResult, _to_local
 from voxel_tracer_tpu_torch.ops.cuda import coherent
+from voxel_tracer_tpu_torch.ops.cuda import dda as dda_kernel
 from voxel_tracer_tpu_torch.ops.math3d import BIG_F32
 from voxel_tracer_tpu_torch.ops.tonemap import aces_approx
 
@@ -94,8 +96,8 @@ def _trace_fast(fv: FastVolume, origins, dirs, use_fallback=False,
     if use_fallback:
         ids = (~resolved).nonzero()[:, 0]
         if ids.numel():
-            fb = dda.intersect_volume_local(fv.grid, fv.brick_occ, o_l[ids],
-                                            d_l[ids], fv.vpu)
+            fb = dda_kernel.intersect_volume_local(fv.grid, fv.brick_occ, o_l[ids],
+                                                   d_l[ids], fv.vpu)
             fb_hit = fb["t"] < BIG_F32
             t[ids] = torch.where(fb_hit, fb["t"], BIG_F32)
             hit[ids] = fb_hit
@@ -119,7 +121,7 @@ def _trace_fast(fv: FastVolume, origins, dirs, use_fallback=False,
 def intersect_volume_fast(fv: FastVolume, origins, dirs,
                           use_fallback: bool = True) -> HitResult:
     """First hit of N world rays ((N, 3) float32 on the volume's device)
-    through one volume, via the B5 kernel."""
+    through one volume, via the B5 kernel (the fallback on D1)."""
     return _trace_fast(fv, origins, dirs, use_fallback)
 
 

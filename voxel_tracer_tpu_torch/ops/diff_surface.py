@@ -16,9 +16,9 @@ backward pass) and the shading arithmetic.  Geometry gradients are the
 volumetric path's (`ops/diff.py`); the two compose.
 
 `render_lambert_surface` takes its hits from the wavefront DDA
-(`ops/composite.py`), `render_lambert_surface_mega` from the kernels' lit
-frame (`ops/cuda/mega.render_lambert_mega`: B1 for the primary rays, B2
-for the shadow rays).
+(`ops/composite.py`, on the D1 kernel), `render_lambert_surface_mega`
+from the kernels' lit frame (`ops/cuda/mega.render_lambert_mega`: B1 for
+the primary rays, B2 for the shadow rays).
 """
 
 from __future__ import annotations
@@ -36,21 +36,22 @@ def _albedo(palette, mat):
 
 def render_lambert_surface(palette, scene, origins, dirs, sun_light=None,
                            ambient=0.2, max_candidates: int = 4,
-                           max_steps: int = 256):
+                           max_steps: int = 256, *, isect=composite):
     """Lambert surface render, differentiable w.r.t. ``palette`` (256, 3)
     (and ``sun_light`` (3,) if given); the scene's geometry gives the hits
-    and its own palette is not read.
+    and its own palette is not read.  ``isect``: the traversal backend
+    (`ops/composite`, on D1 for CUDA tensors, or `composite.PLAIN`).
 
     Returns dict(color (N, 3), hit (N,), mat (N,))."""
     sl = scene.sun_light if sun_light is None else sun_light
 
-    hit = composite.intersect_scene(scene, origins, dirs, max_candidates, max_steps)
+    hit = isect.intersect_scene(scene, origins, dirs, max_candidates, max_steps)
     t, mat, normal = hit.t.detach(), hit.mat.detach(), hit.normal.detach()
     missed = t >= BIG_F32
 
     p = origins + dirs * t[:, None] + normal * 1e-4
     incidence = dot(normal, scene.sun_dir)
-    occluded, _ = composite.is_occluded(
+    occluded, _ = isect.is_occluded(
         scene, p, torch.broadcast_to(scene.sun_dir, p.shape), BIG_F32,
         max_candidates, shadow_seed=None)
     vis = ((incidence > 0.0) & ~occluded).to(torch.float32).detach()
