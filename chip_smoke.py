@@ -58,8 +58,15 @@ them:
   bench scene at 512x512 (B1 + B2 under autograd) against the same
   computation on the plain versions and against the wavefront
   `render_lambert_surface`, and 20 Adam steps of its palette fit.
+- the differentiable march D2 / D3 (`csrc/diff.cu`): against the plain
+  march (`ops/diff.py`) on workload 4's input (262,144 plane rays, 64^3
+  blob, 128 steps), inverse_128's step (131,072 ring rays, 128^3, 192
+  steps), the edge rays (+-0 directions, misses), a z-slab with shifted
+  origins and sigma with zeros and albedo with negative entries, each
+  timed and bounded; then the main path, the wavefront `Trainer.fit` at
+  inverse_128's width, beside the same step on the plain march;
 - the parallel layer at inverse_128_32views' width on the wavefront
-  march: `Trainer.fit` on one device and under an NCCL world of one
+  march (D2 / D3): `Trainer.fit` on one device and under an NCCL world of one
   (`make_train_step`); the worker (`python -m
   voxel_tracer_tpu_torch.parallel.worker`) as two processes on the one
   card over gloo: the ray-sharded step, overlap_slabs 4 against 1, the
@@ -112,7 +119,11 @@ same, host syncs a frame, us per O(1) edit, and game_demo's numbers under
 `game`); D1 (`dda`) its 1 M random rays as its own numbers, every list
 under `lists` and the two frames under `exact_whitted` and `wavefront`
 (ms, device busy, kernels, host syncs, D1 launches and device ms a frame,
-the plain frame's ms); B1 and B2 their `render_vox` launches and
+the plain frame's ms, D1's bound summed over the frame's calls); D2 and
+D3 (`diff_fwd`, `diff_bwd`) their numbers on inverse_128's step, each
+[march] input under `inputs`, `grad_err_rel`, and the `Trainer.fit` step
+on them and on the plain march (`trainer_fit`, `trainer_fit_plain`: ms,
+busy, idle, kernels and host syncs a step); B1 and B2 their `render_vox` launches and
 kernel-vs-plain error (`render_vox`); B1 its numbers on the surface path
 (`surface`: launches, colour
 and gradient against the plain versions on the bench grid and a
@@ -1821,6 +1832,33 @@ def _frame_numbers(tag, frame, reps):
                 d1_device_ms_per_frame=d1_ms)
 
 
+def d1_frame_bound(frame, ix=None):
+    """D1's bound over one frame: the sum over the frame's D1 calls of each
+    call's `_dda_bound` (its rays and the steps they took), and what bounds
+    most of it.  ``ix`` a MegaIntersector, whose D1 function is bound at
+    construction."""
+    from voxel_tracer_tpu_torch.ops.cuda import dda as d1
+    real, calls = d1.intersect_volume_local, []
+
+    def record(grid, bocc, o, d, vpu, **kw):
+        out = real(grid, bocc, o, d, vpu, **kw)
+        calls.append(_dda_bound(o.shape[0], int(out["steps"].sum()), kw,
+                                isinstance(vpu, torch.Tensor), grid, bocc))
+        return out
+
+    d1.intersect_volume_local = record
+    if ix is not None:
+        ix.dda_fn = record
+    try:
+        frame()
+    finally:
+        d1.intersect_volume_local = real
+        if ix is not None:
+            ix.dda_fn = real
+    by = {k: sum(ms for ms, b in calls if b == k) for k in ("bytes", "operations")}
+    return sum(by.values()), max(by, key=by.get), len(calls)
+
+
 def _plain_frame(fn, sync):
     """(frame, host seconds) of one plain frame, ended by ``sync()``."""
     sync()
@@ -1882,6 +1920,10 @@ def phase_dda_frames(device="cuda", size=DF_SIZE, small=DF_SMALL):
     if on_card:
         res["exact_whitted"].update(_frame_numbers(
             "dda frames exact", lambda i: whitted(exact, size, WH_THETA + 0.001 * (i % 8)), 4))
+        bnd = d1_frame_bound(lambda: whitted(exact, size), exact)
+        log(f"[dda frames] exact Whitted: D1 bound {bnd[0]:.4f} ms a frame ({bnd[1]}) over "
+            f"its {bnd[2]} calls")
+        res["exact_whitted"].update(bound_ms=bnd[0], bound_by=bnd[1])
 
     cfg = RenderConfig(width=w, height=h)
     cam = glass_box_camera(merged, WH_THETA, w, h)
@@ -1913,6 +1955,10 @@ def phase_dda_frames(device="cuda", size=DF_SIZE, small=DF_SMALL):
         cams = [glass_box_camera(merged, WH_THETA + 0.001 * i, w, h) for i in range(4)]
         res["wavefront"].update(_frame_numbers(
             "dda frames wavefront", lambda i: r.render(sd, cams[i % 4], frame=0), 3))
+        bnd = d1_frame_bound(lambda: r.render(sd, cams[0], frame=0))
+        log(f"[dda frames] wavefront Renderer: D1 bound {bnd[0]:.4f} ms a frame ({bnd[1]}) "
+            f"over its {bnd[2]} calls")
+        res["wavefront"].update(bound_ms=bnd[0], bound_by=bnd[1])
     return res
 
 
@@ -2398,6 +2444,275 @@ def phase_surface(vol, device="cuda", size=SF_W, steps=SF_STEPS):
 
 
 # ---------------------------------------------------------------------------
+# D2 / D3: the differentiable march of ops/diff.py as two kernels, on its
+# own inputs and under the wavefront trainer (Trainer.fit)
+# ---------------------------------------------------------------------------
+
+MARCH_ATOL = 1e-6               # D2's fields vs the plain march: the same float32
+                                # program, expf may differ in the last bit
+MARCH_GRAD_RTOL = GRAD_RTOL     # D3 x max|g|: atomics and index_add_ sum in
+                                # run-dependent orders, as B7 is held
+MARCH_OPS_PER_RAY = 75          # slab test, reciprocals, entry cells and first
+                                # crossings (diff.cu)
+MARCH_OPS_PER_STEP = 10         # argmin, t_next, segment length, the step, exit tests
+MARCH_OPS_PER_SEGMENT = {"fwd": 24, "bwd": 58}   # a valid segment: expf (8), alpha,
+                                # w, C, D, T; D3 also the suffixes, d sigma, d albedo
+MARCH_FIT_COUNTS = (2, 4)       # Trainer.fit steps of the two timed runs (D2 / D3)
+MARCH_PLAIN_STEPS = 2           # steps of the plain march's timed run
+
+
+def march_edge_scene():
+    """tests/test_torch_diff.py's edge scene: a 16^3 random field, a fan of
+    256 rays, axis-parallel rays with +-0 components and two misses (vpu 10)."""
+    rng = np.random.default_rng(0)
+    sigma = rng.uniform(0, 8.0, (16, 16, 16)).astype(np.float32)
+    albedo = rng.uniform(0, 1, (16, 16, 16, 3)).astype(np.float32)
+    yy, zz = np.meshgrid(np.linspace(0.2, 1.4, 16), np.linspace(0.2, 1.4, 16))
+    tgt = np.stack([np.full(yy.size, 1.6), yy.ravel(), zz.ravel()], -1)
+    o = np.tile(np.array([-0.9, 0.8, 0.8]), (tgt.shape[0], 1))
+    d = tgt - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o = np.concatenate([o, [[0.55, 0.85, -0.5], [-0.5, 0.3, 0.7],
+                            [3.0, 3.0, 3.0], [-1.0, -1.0, -1.0]]]).astype(np.float32)
+    d = np.concatenate([d, [[-0.0, 0.0, 1.0], [1.0, -0.0, 0.0],
+                            [1.0, 0.0, 0.0], [0.0, 0.0, -1.0]]]).astype(np.float32)
+    return sigma, albedo, o, d
+
+
+def march_inputs(device="cuda", scale=1):
+    """[march]'s inputs, (tag, sigma, albedo, origins, dirs, vpu, max_steps)
+    on ``device``; ``scale`` divides the ray counts and grid sides (a CPU
+    rehearsal)."""
+    from voxel_tracer_tpu_torch.bench.workloads import plane_rays
+    from voxel_tracer_tpu_torch.parallel import worker
+    from voxel_tracer_tpu_torch.parallel.grid_train import slab_origins
+    from voxel_tracer_tpu_torch.utils.profiling import blob_field, ring_views
+
+    def dev(*xs):
+        return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(device) for x in xs)
+
+    g4, n4 = 64 // scale, (512 // scale) ** 2         # workload 4 (bench_suite.py:218-247)
+    s4, a4 = dev(*blob_field(g4, 0, 40.0, 0.25))
+    o4, d4 = dev(*plane_rays(n4, g4, 0))
+    if scale == 1:                                   # inverse_128's step
+        s1, a1, o1, d1, _kw = worker.train_problem("inverse_128")
+    else:
+        s1, a1 = blob_field(128 // scale, 1)
+        o1, d1 = ring_views(128 // scale, 32 // scale, 32, 20.0)
+    s1, a1, o1, d1 = dev(s1, a1, o1, d1)
+    zs = s1.shape[0] // 2                            # grid rank 1's slab of two
+    z0 = np.float32(1) * np.float32(zs / 20.0)
+    rng = np.random.RandomState(21)
+    s5 = torch.where(torch.from_numpy(rng.rand(*s4.shape) < 0.5).to(device), 0.0, s4)
+    a5 = a4 - 0.5
+    return [("workload 4", s4, a4, o4, d4, 20.0, 128),
+            ("inverse_128 step", s1, a1, o1, d1, 20.0, 192),
+            ("edge rays", *dev(*march_edge_scene()), 10.0, 192),
+            ("z-slab", s1[zs:], a1[zs:], slab_origins(o1, z0), d1, 20.0, 192),
+            ("zeros and negatives", s5, a5, o4, d4, 20.0, 128)]
+
+
+def march_counts(sigma, o, d, vpu, max_steps):
+    """(steps, valid segments) the march takes on these inputs, counted by
+    the plain march's own set-up and step (`ops/diff.py`)."""
+    from voxel_tracer_tpu_torch.ops import diff
+    size3_i, (st, stepi, delta, _, t_exit) = diff._setup(sigma, o, d, vpu)
+    steps = valid = 0
+    for _ in range(max_steps):
+        alive = int(st.alive.sum())
+        if alive == 0:
+            break
+        steps += alive
+        st, _, _, v = diff._step(st, stepi, delta, size3_i, t_exit)
+        valid += int(v.sum())
+    return steps, valid
+
+
+def march_bound(mode, n, steps, valid, sigma):
+    """Each ray's inputs read and outputs written once (D3: the saved
+    outputs and cotangents read, the gradient grids written); of sigma and
+    albedo a 32-byte sector each a valid segment, never more than the two
+    grids; operations a ray, a step and a segment (`MARCH_OPS_*`)."""
+    grids = sigma.numel() * 16
+    rays = n * (24 + 20) if mode == "fwd" else n * (24 + 40) + grids
+    nbytes = rays + min(2 * SECTOR * valid, grids)
+    ops = n * MARCH_OPS_PER_RAY + steps * MARCH_OPS_PER_STEP + \
+        valid * MARCH_OPS_PER_SEGMENT[mode]
+    return bound(nbytes, ops)
+
+
+def _march_loss(out, target):
+    """A loss on color, trans and depth (the depth's NaN rays left out)."""
+    return (torch.mean((out["color"] - target) ** 2) + 0.1 * torch.mean(out["trans"])
+            + 0.01 * torch.mean(torch.nan_to_num(out["depth"], nan=0.0)))
+
+
+def march_pair(tag, sigma, albedo, o, d, vpu, max_steps, smi=None):
+    """D2 and D3 against the plain march on one input: the fields, the
+    gradients of `_march_loss`, and (given ``smi``, the card's name and
+    power limit) each kernel's event and device ms, the plain halves' ms
+    and the bound."""
+    from voxel_tracer_tpu_torch.ops import diff
+    from voxel_tracer_tpu_torch.ops.cuda import diff as diff_kernel
+    n = o.shape[0]
+    target = torch.from_numpy(np.random.RandomState(7).rand(n, 3).astype(np.float32)).to(o.device)
+    res = []
+    for fn in (diff_kernel.render_density, diff.render_density):
+        s, a = sigma.detach().clone().requires_grad_(), albedo.detach().clone().requires_grad_()
+        out = fn(s, a, o, d, vpu, max_steps)
+        outs = [out[k] for k in ("color", "trans", "depth")]
+        cts = torch.autograd.grad(_march_loss(out, target), outs, retain_graph=True)
+        torch.autograd.backward(outs, cts)
+        res.append(([x.detach() for x in outs], cts, s.grad, a.grad))
+    (ok, cts, sk, ak), (op, _, sp, ap) = res
+    nan_k = [int(torch.isnan(x).sum()) for x in ok]
+    nan_eq = all(torch.equal(torch.isnan(k), torch.isnan(p)) for k, p in zip(ok, op))
+    err = max(_maxabs(torch.where(torch.isnan(p), 0.0, k - p)) for k, p in zip(ok, op))
+    g_rel = max(_maxabs(x - y) / max(_maxabs(y), 1e-30) for x, y in ((sk, sp), (ak, ap)))
+    g_abs = max(_maxabs(x - y) for x, y in ((sk, sp), (ak, ap)))
+    zero_ok = not bool(sk[sigma == 0].any())
+    log(f"[march] {tag}: {n} rays, grid {tuple(sigma.shape)}, {max_steps} steps; D2 vs plain "
+        f"color / trans / depth max |d| {err:.3g} (atol {MARCH_ATOL}), NaN depth on "
+        f"{nan_k[2]} rays, equal masks {nan_eq}; D3 vs plain grad rel err {g_rel:.3g} "
+        f"(rtol {MARCH_GRAD_RTOL}), max |d| {g_abs:.3g}, d sigma 0 where sigma is 0: {zero_ok}")
+    require(nan_eq and err <= MARCH_ATOL, f"{tag}: D2 differs from the plain march: {err}")
+    require(g_rel <= MARCH_GRAD_RTOL, f"{tag}: D3 differs from the plain march: {g_rel}")
+    require(zero_ok, f"{tag}: D3 gives d sigma where sigma is 0")
+    require(bool((op[1] < 1).any()), f"{tag}: no ray met density")
+    out = dict(rays=n, err_fwd=err, err_bwd=g_abs, grad_err_rel=g_rel)
+    if smi is None:
+        return out
+    steps, valid = march_counts(sigma, o, d, vpu, max_steps)
+    c, t, dp = (x.contiguous() for x in ok)
+    s, a = sigma.contiguous(), albedo.contiguous()
+
+    def fwd_k():
+        return diff_kernel.march_fwd(s, a, o, d, vpu, max_steps)
+
+    def bwd_k():
+        return diff_kernel.march_bwd(s, a, o, d, vpu, max_steps, c, t, dp, *cts)
+
+    for mode, kfn, pfn, name in (
+            ("fwd", fwd_k, lambda: diff._render_fwd_only(s, a, o, d, vpu, max_steps),
+             "diff_fwd_kernel"),
+            ("bwd", bwd_k, lambda: diff._render_bwd(s, a, o, d, vpu, max_steps, c, t, dp, *cts),
+             "diff_bwd_kernel")):
+        ms = cuda_ms(lambda i: kfn(), 10)
+        dev_ms = kernel_device_ms(kfn, 3, name)
+        plain_ms = cuda_ms(lambda i: pfn(), 1)
+        bnd = march_bound(mode, n, steps, valid, sigma)
+        log(f"[march] {tag}: {'D2' if mode == 'fwd' else 'D3'} {ms:.4f} ms a call (events), "
+            f"device {'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}; plain "
+            f"{plain_ms:.2f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}): {steps} steps "
+            f"({steps / n:.1f} a ray), {valid} valid segments; {smi}")
+        out[mode] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bnd[0],
+                         bound_by=bnd[1], steps=steps, valid_segments=valid)
+    return out
+
+
+def _step_numbers(tag, run, counts, smi):
+    """ms a step (CUDA events over ``counts`` steps each, run(k) runs k
+    steps), and of one step: device busy, idle share, kernels (a device
+    window) and host syncs."""
+    ms = [cuda_ms(lambda i, k=k: run(k), 1) / k for k in counts]
+    wall, busy, kernels = device_busy(lambda: run(1))
+    syncs = count_host_syncs(lambda: run(1))
+    idle = None if busy is None else 1.0 - busy / ms[-1]
+    over = ", ".join(f"{m:.3f} ms a step over {k} steps" for m, k in zip(ms, counts))
+    log(f"[march] {tag}: {over}; one profiled step: wall {wall:.3f} ms, device busy "
+        f"{'not measured' if busy is None else f'{busy:.3f} ms'} in {kernels} kernels, idle "
+        f"share {'not measured' if idle is None else f'{idle:.4f}'}, {syncs} host syncs; "
+        f"{smi}")
+    return dict(ms_per_step=ms[-1], busy_ms=busy, idle_share=idle, kernels=kernels,
+                host_syncs=syncs)
+
+
+@timed_phase
+def phase_march():
+    """[march] D2 and D3 against the plain march (`ops/diff.py`) on five
+    inputs: workload 4's (262,144 plane rays, 64^3 blob, 128 steps),
+    inverse_128's step (131,072 ring rays, 128^3, 192 steps), the edge
+    rays (+-0 directions, misses), a z-slab with shifted origins (as
+    `grid_train.render_grid_sharded` passes it) and sigma with zeros and
+    albedo with negative entries; each timed and bounded.  Then the main
+    path, `Trainer.fit` (wavefront) at inverse_128's width, with the launch
+    counts at 0 just before and read just after; its step timed beside the
+    same step through the plain march (a local loss here)."""
+    from voxel_tracer_tpu_torch.ops import diff
+    from voxel_tracer_tpu_torch.ops.cuda import diff as diff_kernel
+    from voxel_tracer_tpu_torch.parallel import worker
+    from voxel_tracer_tpu_torch.parallel.grid_train import make_optimizer
+    from voxel_tracer_tpu_torch.trainer import TrainConfig, Trainer, draw_batch
+    smi = nvidia_smi()
+    res = {}
+    for tag, *args in march_inputs():
+        res[tag] = march_pair(tag, *args, smi=smi)
+    err_fwd = max(r["err_fwd"] for r in res.values())
+    err_bwd = max(r["err_bwd"] for r in res.values())
+
+    s, a, o, d, kw = worker.train_problem("inverse_128")
+    vpu, steps = kw["vpu"], kw["max_steps"]
+    c = worker.targets(s, a, o, d, vpu, steps, "cuda").cpu().numpy()
+    n = o.shape[0]
+    cfg = TrainConfig(grid_size=(TRAIN_G,) * 3, vpu=vpu, lr=kw["lr"], steps=0,
+                      rays_per_batch=n, march_steps=steps, sigma_init=kw["sigma_init"])
+    tr = Trainer(cfg)
+    losses = []
+
+    def fit(k):
+        tr.cfg.steps += k
+        losses.extend(tr.fit(o, d, c, log_every=1, log_fn=lambda m: None))
+
+    diff_kernel.reset_launch_counts()
+    fit(3)                                   # the main path
+    torch.cuda.synchronize()
+    launches = dict(diff_kernel.KERNEL_LAUNCHES)
+    log(f"[march] Trainer.fit (wavefront), {TRAIN_G}^3, {n} rays a step, {steps} march "
+        f"steps: losses {[f'{v:.6g}' for v in losses]}; launches {launches}")
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            f"the wavefront trainer's loss did not fall: {losses}")
+    require(launches == {"diff_fwd": 3, "diff_bwd": 3},
+            f"Trainer.fit did not run each step on D2 and D3: {launches}")
+    kernel = _step_numbers("Trainer.fit on D2 / D3", fit, MARCH_FIT_COUNTS, smi)
+
+    # the same step through the plain march: Trainer.fit's sampler and
+    # batch copy, make_train_step's loss and Adam, on a mesh of one
+    params = {k: torch.full_like(v.detach(), fill) for (k, v), fill in
+              zip(tr.params.items(), (kw["sigma_init"], 0.5))}
+    for v in params.values():
+        v.requires_grad_()
+    opt = make_optimizer(params, kw["lr"])
+    rng = np.random.RandomState(0)
+    plain_losses = []
+
+    def plain_fit(k):
+        for _ in range(k):
+            idx = draw_batch(rng, n, n, "wavefront")
+            ob, db, cb = (torch.as_tensor(np.asarray(x[idx], np.float32), device="cuda")
+                          for x in (o, d, c))
+            out = diff.render_density(params["sigma"], params["albedo"], ob, db, vpu, steps)
+            color = out["color"] + out["trans"][:, None] * torch.zeros(3, device="cuda")
+            loss = torch.mean((color - cb) ** 2)
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            opt.step()
+            plain_losses.append(float(loss.detach()))
+
+    plain_fit(1)
+    rel = abs(plain_losses[0] - losses[0]) / abs(losses[0])
+    log(f"[march] first step's loss: plain march {plain_losses[0]:.8g}, D2 {losses[0]:.8g}, "
+        f"rel diff {rel:.3g} (rtol {PAR_RTOL_TWO}: the same forward within {MARCH_ATOL})")
+    require(rel <= PAR_RTOL_TWO, f"the first step's loss differs: {rel}")
+    plain = _step_numbers("the same step on the plain march", plain_fit,
+                          (MARCH_PLAIN_STEPS,), smi)
+    log(f"[march] Trainer.fit step at inverse_128's width: {kernel['ms_per_step']:.3f} ms on "
+        f"D2 / D3, {plain['ms_per_step']:.3f} ms on the plain march "
+        f"({plain['ms_per_step'] / kernel['ms_per_step']:.1f}x); {smi}")
+    return dict(inputs=res, launches=launches, err_fwd=err_fwd, err_bwd=err_bwd,
+                fit=kernel, fit_plain=plain)
+
+
+# ---------------------------------------------------------------------------
 # Sixth slice: the parallel layer (parallel/ on torch.distributed) and the
 # render_vox example
 # ---------------------------------------------------------------------------
@@ -2723,6 +3038,7 @@ def main():
     mu = phase_multi()
     game = phase_game()
     surf = phase_surface(vol)
+    march = phase_march()
     par = phase_parallel()
     rv = phase_render_vox()
     phase_suite()
@@ -2842,6 +3158,17 @@ def main():
         bound_ms=rnd["bound_ms"], bound_by=rnd["bound_by"], library_ms=None,
         lists={k.replace(" ", "_"): v for k, v in dda_lists_res.items()},
         exact_whitted=dfr["exact_whitted"], wavefront=dfr["wavefront"]))
+    inv = march["inputs"]["inverse_128 step"]
+    for name, mode, line in (("diff_fwd", "fwd", 87), ("diff_bwd", "bwd", 140)):
+        t = inv[mode]
+        kernels.append(dict(
+            name=name, route="cuda", source="voxel_tracer_tpu_torch/csrc/diff.cu",
+            replaces=f"voxel_tracer_tpu/ops/diff.py:{line}", launches=march["launches"][name],
+            max_abs_err=march[f"err_{mode}"], ms=t["ms"], device_ms=t["device_ms"],
+            plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+            library_ms=None, grad_err_rel=max(r["grad_err_rel"] for r in march["inputs"].values()),
+            inputs={k.replace(" ", "_"): v[mode] for k, v in march["inputs"].items()},
+            trainer_fit=march["fit"], trainer_fit_plain=march["fit_plain"]))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

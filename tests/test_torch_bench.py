@@ -320,16 +320,17 @@ def _global_kernels():
 
 def test_every_kernel_maps_to_one_label():
     """Each kernel of csrc/*.cu has one label: B1-B7 the Pallas kernels'
-    counterparts, D1 the DDA's two passes (dda_kernel, dda_exhaust_kernel)."""
+    counterparts, D1 the DDA's two passes (dda_kernel, dda_exhaust_kernel),
+    D2 and D3 the differentiable march's forward and backward."""
     names = _global_kernels()
-    assert len(names) == 9, names
+    assert len(names) == 11, names
     labels = []
     for name in names:
         hits = [lab for key, lab in measure.KERNEL_LABELS.items()
                 if measure.label_of(f"void {name}(int)") == lab and key == name]
         assert len(hits) == 1, (name, hits)
         labels += hits
-    assert sorted(labels) == [f"B{i}" for i in range(1, 8)] + ["D1", "D1"]
+    assert sorted(labels) == [f"B{i}" for i in range(1, 8)] + ["D1", "D1", "D2", "D3"]
 
 
 def test_dda_passes_sum_under_one_label():

@@ -21,6 +21,9 @@ hundreds of bricks); image within 1 LSB (expf in the sky).
 The DDA kernel (D1) against the plain DDA (`ops/dda.py`) in every mode:
 every output equal, t bit for bit (the same float32 program; stochastic
 shadows key on the hit cell).
+The differentiable march (D2, D3) against the plain march (`ops/diff.py`):
+color, trans and depth within 1e-6 and NaN on the same rays; gradients
+within 1e-4 x max|g| (atomics), d sigma 0 where sigma is 0.
 """
 
 import numpy as np
@@ -849,3 +852,91 @@ def test_dda_kernel_empty_list_and_bad_input(cuda):
         dda_kernel.intersect_volume_local(grid, bocc, o, d, vpu, shadow=True)
     with pytest.raises(ValueError):
         dda_kernel.intersect_volume_local(grid, bocc, o, d, torch.ones(5, device=cuda))
+
+
+# ---------------------------------------------------------------------------
+# D2 / D3: the differentiable march (ops/cuda/diff.py) against the plain
+# march (ops/diff.py): color, trans and depth within 1e-6 (the same float32
+# program; expf may differ in the last bit) and NaN on the same rays (the
+# depth of a ray whose set-up leaves t_exit or a first crossing at -inf);
+# d sigma and d albedo within 1e-4 x max|g| (atomics and index_add_ sum in
+# run-dependent orders), d sigma exactly 0 where sigma is 0
+# ---------------------------------------------------------------------------
+
+def _march_scene(kind, dev):
+    """(sigma, albedo, origins, dirs, vpu) on ``dev``: tests/test_torch_diff.py's
+    edge scene (16^3, a fan of 256 rays, axis-parallel rays with +-0
+    components and two misses) or a 32^3 random field (a third of sigma 0,
+    albedo with negative entries) with 4096 rays from all sides."""
+    if kind == "edge":
+        rng = np.random.default_rng(0)
+        sigma = rng.uniform(0, 8.0, (16, 16, 16)).astype(np.float32)
+        albedo = rng.uniform(0, 1, (16, 16, 16, 3)).astype(np.float32)
+        yy, zz = np.meshgrid(np.linspace(0.2, 1.4, 16), np.linspace(0.2, 1.4, 16))
+        tgt = np.stack([np.full(yy.size, 1.6), yy.ravel(), zz.ravel()], -1)
+        o = np.tile(np.array([-0.9, 0.8, 0.8]), (tgt.shape[0], 1))
+        d = tgt - o
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        o = np.concatenate([o, [[0.55, 0.85, -0.5], [-0.5, 0.3, 0.7],
+                                [3.0, 3.0, 3.0], [-1.0, -1.0, -1.0]]]).astype(np.float32)
+        d = np.concatenate([d, [[-0.0, 0.0, 1.0], [1.0, -0.0, 0.0],
+                                [1.0, 0.0, 0.0], [0.0, 0.0, -1.0]]]).astype(np.float32)
+        o, d, vpu = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev), 10.0
+    else:
+        rng = np.random.RandomState(8)
+        g = 32
+        sigma = np.where(rng.rand(g, g, g) < 0.35, 0.0, rng.rand(g, g, g) * 12.0)
+        albedo = rng.uniform(-0.3, 1.0, (g, g, g, 3))
+        (o, d), vpu = _mixed_rays(dev), float(g)
+    sigma, albedo = (torch.tensor(x, dtype=torch.float32, device=dev) for x in (sigma, albedo))
+    return sigma, albedo, o, d, vpu
+
+
+@pytest.mark.parametrize("scene", ["edge", "random"])
+def test_march_kernels_match_plain(cuda, scene):
+    from voxel_tracer_tpu_torch.ops import diff
+    from voxel_tracer_tpu_torch.ops.cuda import diff as diff_kernel
+    sigma, albedo, o, d, vpu = _march_scene(scene, cuda)
+    n = o.shape[0]
+    rng = np.random.RandomState(3)
+    cts = tuple(torch.from_numpy(rng.randn(*s).astype(np.float32)).to(cuda)
+                for s in ((n, 3), (n,), (n,)))
+    res = []
+    for fn in (diff_kernel.render_density, diff.render_density):
+        s, a = sigma.clone().requires_grad_(), albedo.clone().requires_grad_()
+        before = dict(diff_kernel.KERNEL_LAUNCHES)
+        out = fn(s, a, o, d, vpu, 192)
+        outs = (out["color"], out["trans"], out["depth"])
+        torch.autograd.backward(outs, cts)
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in diff_kernel.KERNEL_LAUNCHES.items()}
+        res.append(([x.detach() for x in outs], s.grad, a.grad, launched))
+    (ok, sk, ak, lk), (op, sp, ap, lp) = res
+    assert lk == {"diff_fwd": 1, "diff_bwd": 1} and lp == {"diff_fwd": 0, "diff_bwd": 0}
+    for k, p in zip(ok, op):
+        assert torch.equal(torch.isnan(k), torch.isnan(p))
+        fin = ~torch.isnan(p)
+        assert float((k[fin] - p[fin]).abs().max()) <= 1e-6
+    assert bool((op[1] < 1).any())
+    for x, y in ((sk, sp), (ak, ap)):
+        assert float((x - y).abs().max()) <= 1e-4 * float(y.abs().max())
+    assert not bool(sk[sigma == 0].any()) and not bool(sp[sigma == 0].any())
+
+
+def test_march_kernels_empty_list_and_bad_input(cuda):
+    from voxel_tracer_tpu_torch.ops.cuda import diff as diff_kernel
+    sigma, albedo, o, d, vpu = _march_scene("random", cuda)
+    before = dict(diff_kernel.KERNEL_LAUNCHES)
+    e = diff_kernel.render_density(sigma, albedo, o[:0], d[:0], vpu)
+    assert e["color"].shape == (0, 3) and e["trans"].shape == (0,)
+    assert diff_kernel.KERNEL_LAUNCHES == before
+    with pytest.raises(TypeError):
+        diff_kernel.render_density(sigma, albedo, o.double(), d, vpu)
+    with pytest.raises(ValueError):
+        diff_kernel.render_density(sigma.cpu(), albedo, o, d, vpu)
+    with pytest.raises(ValueError):
+        diff_kernel.render_density(sigma, albedo[..., :2], o, d, vpu)
+    c, t, dp = diff_kernel.march_fwd(sigma, albedo, o, d, vpu, 64)
+    with pytest.raises(ValueError):
+        diff_kernel.march_bwd(sigma, albedo, o, d, vpu, 64, c, t, dp, c[:, 0], t, dp)
+    assert diff_kernel.KERNEL_LAUNCHES["diff_bwd"] == before["diff_bwd"]

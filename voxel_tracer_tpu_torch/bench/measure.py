@@ -70,6 +70,8 @@ KERNEL_LABELS = {
     "integrate_kernel<true>": "B7",
     "dda_kernel": "D1",
     "dda_exhaust_kernel": "D1",
+    "diff_fwd_kernel": "D2",
+    "diff_bwd_kernel": "D3",
 }
 # a kernel's symbol as the profiler prints it, e.g.
 # "void (anonymous namespace)::integrate_kernel<true>((anonymous namespace)::Params)"
@@ -151,7 +153,7 @@ def quartiles(samples) -> dict:
 
 
 def label_of(kernel_name: str):
-    """The label (B1-B7, D1) of a profiler kernel name, or None for glue."""
+    """The label (B1-B7, D1-D3) of a profiler kernel name, or None for glue."""
     m = _SYMBOL.search(kernel_name)
     return KERNEL_LABELS[m.group(1)] if m else None
 

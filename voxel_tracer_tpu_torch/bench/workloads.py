@@ -468,30 +468,38 @@ def diff_lambert_512(device="cuda", seed=0, *, grid=64, size=512, frames=8):
     return wl
 
 
-def diff_lambert_512_wavefront(device="cuda", seed=0, *, grid=64, size=512, max_steps=128,
-                               frames=2):
-    """4. bench_suite.py:218-247: ops/diff.render_density (no kernel: the
-    JAX suite's non-Pallas path) under torch.autograd on rays from a plane
-    in front of the blob; an SGD step of mean(color^2) a frame, the
-    forward alone as `wavefront_fwd_rays_per_s`.  The step is held
-    against the port on the CPU on every ray, its forward alone on every
-    WF_SUBSET-th ray."""
-    from voxel_tracer_tpu_torch.ops import diff
-    n = size * size
-    sigma, albedo = (torch.from_numpy(x).to(device)
-                     for x in profiling.blob_field(grid, seed, 40.0, 0.25))
+def plane_rays(n, grid, seed):
+    """Workload 4's rays (numpy): origins spread over the plane z = -0.5 in
+    front of a grid of ``grid`` voxels at vpu 20, one direction for all."""
     u = np.random.RandomState(seed + 3).rand(n, 2).astype(np.float32) * np.float32(grid / 20.0)
     o = np.stack([u[:, 0], u[:, 1], np.full(n, -0.5, np.float32)], axis=1)
     d0 = np.array([0.15, 0.1, 1.0], np.float32)
     d0 /= np.linalg.norm(d0)
-    o, d = (torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)
-            for x in (o, np.broadcast_to(d0, (n, 3))))
+    return (np.ascontiguousarray(o, np.float32),
+            np.ascontiguousarray(np.broadcast_to(d0, (n, 3)), np.float32))
+
+
+def diff_lambert_512_wavefront(device="cuda", seed=0, *, grid=64, size=512, max_steps=128,
+                               frames=2):
+    """4. bench_suite.py:218-247: the JAX suite's non-Pallas path,
+    `render_density` (D2 forward, D3 backward: `ops/cuda/diff.py`) under
+    torch.autograd on rays from a plane in front of the blob; an SGD step
+    of mean(color^2) a frame, the forward alone as
+    `wavefront_fwd_rays_per_s`.  The step is held against the plain march
+    (`ops/diff.py`) on the CPU on every ray, its forward alone on every
+    WF_SUBSET-th ray."""
+    from voxel_tracer_tpu_torch.ops import diff
+    from voxel_tracer_tpu_torch.ops.cuda import diff as diff_kernel
+    n = size * size
+    sigma, albedo = (torch.from_numpy(x).to(device)
+                     for x in profiling.blob_field(grid, seed, 40.0, 0.25))
+    o, d = (torch.from_numpy(x).to(device) for x in plane_rays(n, grid, seed))
     vpu = 20.0
     params = (sigma.clone().requires_grad_(), albedo.clone().requires_grad_())
     sub = slice(None, None, WF_SUBSET)
 
-    def render(s, a, oo=o, dd=d):
-        return diff.render_density(s, a, oo, dd, vpu, max_steps)
+    def render(s, a, oo=o, dd=d, march=diff_kernel.render_density):
+        return march(s, a, oo, dd, vpu, max_steps)
 
     def loss_of(out):
         return torch.mean(out["color"] ** 2)
@@ -506,7 +514,7 @@ def diff_lambert_512_wavefront(device="cuda", seed=0, *, grid=64, size=512, max_
         o_c, d_c = o.cpu(), d.cpu()
         outs, loss, grads = {k: [] for k in ("color", "trans", "depth")}, 0.0, None
         for a in range(0, n, WF_CHUNK):
-            out = render(*ps, o_c[a:a + WF_CHUNK], d_c[a:a + WF_CHUNK])
+            out = render(*ps, o_c[a:a + WF_CHUNK], d_c[a:a + WF_CHUNK], diff.render_density)
             part = torch.sum(out["color"] ** 2) / (3.0 * n)
             g = torch.autograd.grad(part, ps)
             grads = g if grads is None else tuple(x + y for x, y in zip(grads, g))

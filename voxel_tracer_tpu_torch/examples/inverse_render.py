@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from voxel_tracer_tpu_torch.models.camera import Camera, rays_for_image
-from voxel_tracer_tpu_torch.ops import diff
+from voxel_tracer_tpu_torch.ops.cuda import diff as diff_kernel
 from voxel_tracer_tpu_torch.ops.cuda import diffint
 from voxel_tracer_tpu_torch.trainer import BACKENDS, TrainConfig, Trainer
 
@@ -60,7 +60,7 @@ def make_target_views(grid_n, n_views, img_size, vpu, device):
                               np.sin(ang) * np.cos(el)])
         cam = Camera.create(pos, (0, 0, 0), 1.0)
         o, d = rays_for_image(cam, img_size, img_size, device=device)
-        out = diff.render_density(sigma_t, albedo_t, o + pivot, d, vpu, 128)
+        out = diff_kernel.render_density(sigma_t, albedo_t, o + pivot, d, vpu, 128)
         views.append(((o + pivot).cpu().numpy(), d.cpu().numpy(),
                       out["color"].cpu().numpy()))
     return views, (sigma_t, albedo_t)
@@ -126,8 +126,8 @@ def main(argv=None):
     o, d = rays_for_image(cam, args.size, args.size, device=args.device)
     pivot = torch.full((3,), args.grid / (2 * vpu), device=args.device)
     with torch.no_grad():
-        out = diff.render_density(gt_sigma, gt_albedo, o + pivot, d, vpu,
-                                  cfg.march_steps)
+        out = diff_kernel.render_density(gt_sigma, gt_albedo, o + pivot, d, vpu,
+                                         cfg.march_steps)
     gt_img = out["color"].cpu().numpy().reshape(args.size, args.size, 3)
     recon = trainer.render(cam, args.size, args.size)
     mse = float(np.mean((recon - gt_img) ** 2))

@@ -14,9 +14,12 @@ emission-absorption model with exact per-voxel segment lengths dl_i:
 lock-step voxel DDA over `max_steps` steps, and the backward stores no
 tape but replays the same march and rebuilds the suffix sums from the
 saved outputs, scatter-adding the gradients with `index_add_`.  This is
-plain PyTorch with no kernel (the JAX function has none either); it
-serves the trainer's wavefront backend and `Trainer.render`, and the
-kernel path of `ops/cuda/diffint.py` is tested against its JAX twin.
+the plain version of the kernels D2 and D3 (`csrc/diff.cu`), which march
+one ray a thread with the same float program: the wavefront backend's
+step (`parallel/`), `Trainer.render` and the examples call
+`ops/cuda/diff.render_density`, which launches them for CUDA tensors and
+runs this function for CPU tensors.  This module never reaches the
+kernels.
 Divisors are tensors on the rays' device (PyTorch's CUDA division by a
 CPU scalar multiplies by the reciprocal, which rounds differently).
 """

@@ -24,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from voxel_tracer_tpu_torch.ops import diff
+from voxel_tracer_tpu_torch.ops.cuda import diff as diff_kernel
 from voxel_tracer_tpu_torch.parallel.mesh import GRID, RAYS, Mesh
 
 PARAM_NAMES = ("sigma", "albedo")
@@ -71,8 +71,8 @@ def render_grid_sharded(mesh: Mesh, params_slab, o_l, d_l, vpu, max_steps):
     rank's rays.  ``params_slab`` holds the rank's z-slab."""
     zs = params_slab["sigma"].shape[0]
     z0 = np.float32(mesh.coords[GRID]) * np.float32(zs / vpu)
-    out = diff.render_density(params_slab["sigma"], params_slab["albedo"],
-                              slab_origins(o_l, z0), d_l, vpu, max_steps)
+    out = diff_kernel.render_density(params_slab["sigma"], params_slab["albedo"],
+                                     slab_origins(o_l, z0), d_l, vpu, max_steps)
     Tg, Cg, Dg = (_GatherGrid.apply(out[k], mesh)
                   for k in ("trans", "color", "depth"))
     return compose_slabs(Tg, Cg, Dg, d_l[:, 2])

@@ -16,7 +16,8 @@ import numpy as np
 import torch
 
 from voxel_tracer_tpu_torch.models.camera import rays_for_image
-from voxel_tracer_tpu_torch.ops import composite, diff
+from voxel_tracer_tpu_torch.ops import composite
+from voxel_tracer_tpu_torch.ops.cuda import diff as diff_kernel
 from voxel_tracer_tpu_torch.parallel.grid_train import (
     PARAM_NAMES, background_rgb, compose_slabs, make_optimizer, slab_origins)
 from voxel_tracer_tpu_torch.parallel import mesh as pmesh
@@ -116,7 +117,7 @@ def make_train_step(mesh: Mesh, optimizer, vpu: float, max_steps: int = 192,
     def local_loss(params, o_l, d_l, target):
         sigma, albedo = params["sigma"], params["albedo"]
         if S == 1:
-            out = diff.render_density(sigma, albedo, o_l, d_l, vpu, max_steps)
+            out = diff_kernel.render_density(sigma, albedo, o_l, d_l, vpu, max_steps)
             color, trans = out["color"], out["trans"]
         else:
             zs = sigma.shape[0] // S
@@ -129,7 +130,7 @@ def make_train_step(mesh: Mesh, optimizer, vpu: float, max_steps: int = 192,
                     sig = _GradMean.apply(sig, mesh, RAYS)
                     alb = _GradMean.apply(alb, mesh, RAYS)
                 # the JAX step shifts by float32(s * zs / vpu)
-                out = diff.render_density(
+                out = diff_kernel.render_density(
                     sig, alb, slab_origins(o_l, np.float32(s * zs / vpu)), d_l,
                     vpu, slab_steps)
                 parts.append(out)

@@ -97,9 +97,9 @@ def train_problem(name):
 
 def targets(sigma, albedo, o, d, vpu, max_steps, device):
     """Target colours: the truth field rendered by the wavefront march."""
-    from voxel_tracer_tpu_torch.ops import diff
+    from voxel_tracer_tpu_torch.ops.cuda import diff as diff_kernel
     with torch.no_grad():
-        return diff.render_density(
+        return diff_kernel.render_density(
             torch.from_numpy(sigma).to(device), torch.from_numpy(albedo).to(device),
             torch.from_numpy(o).to(device), torch.from_numpy(d).to(device),
             vpu, max_steps)["color"]

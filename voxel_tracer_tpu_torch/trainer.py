@@ -5,10 +5,13 @@ optimize a 128^3 density + albedo grid from 32 posed target images).  Two
 backends, named for what runs the march:
 
 - ``"wavefront"`` (the JAX package's ``"xla"``, accepted as an alias):
-  `ops/diff.render_density`, the lock-step PyTorch march with its replay
-  backward, in `parallel.sharding.make_train_step` over a ray mesh: under
-  an initialized process group each rank trains on its contiguous block
-  of every batch and the gradients are averaged over the ranks;
+  `ops/cuda/diff.render_density`, the voxel-level march on the kernels D2
+  (forward) and D3 (replay backward) for CUDA tensors and the plain
+  lock-step march of `ops/diff.py` for CPU tensors, in
+  `parallel.sharding.make_train_step` over a ray mesh: under an
+  initialized process group each rank trains on its contiguous block of
+  every batch and the gradients are averaged over the ranks;
+  `Trainer.render` runs the same march;
 - ``"kernel"`` (the JAX package's ``"pallas"``, accepted as an alias):
   `ops/cuda/diffint.render_density_mega` on the integrate kernels B6/B7,
   or `render_density_slabs` when ``n_slabs > 1``, on one device (the JAX
@@ -31,7 +34,7 @@ import numpy as np
 import torch
 
 from voxel_tracer_tpu_torch.models.camera import Camera, rays_for_image
-from voxel_tracer_tpu_torch.ops import diff
+from voxel_tracer_tpu_torch.ops.cuda import diff as diff_kernel
 from voxel_tracer_tpu_torch.ops.cuda import diffint
 from voxel_tracer_tpu_torch.parallel import mesh as pmesh
 from voxel_tracer_tpu_torch.parallel.sharding import make_train_step
@@ -236,9 +239,9 @@ class Trainer:
         pivot = torch.from_numpy(np.array([gx, gy, gz], np.float32)
                                  / (2.0 * self.cfg.vpu)).to(self.device)
         o, d = rays_for_image(camera, width, height, device=self.device)
-        out = diff.render_density(self.params["sigma"], self.params["albedo"],
-                                  o + pivot, d, self.cfg.vpu,
-                                  self.cfg.march_steps)
+        out = diff_kernel.render_density(self.params["sigma"], self.params["albedo"],
+                                         o + pivot, d, self.cfg.vpu,
+                                         self.cfg.march_steps)
         color = out["color"]
         if background is not None:
             color = color + out["trans"][:, None] * torch.as_tensor(
