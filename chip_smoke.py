@@ -41,12 +41,18 @@ them:
   a medium batch at a 6-step budget (and the same rays in two calls,
   where the JAX loop's batch rule gives other answers), the glass box's
   interior (medium) and scan (ignore) rays, shadow rays with seeds of
-  2^31 and above, and stacked grids by oid with a per-ray vpu; then the
-  slice's path at 1280x768 on the glass box scene: the exact Whitted
+  2^31 and above, and stacked grids by oid with a per-ray vpu (once more
+  with the brick bitmap read from global memory, the kernel's branch for
+  bitmaps over 16 KB); voxels edited in place between two D1 calls
+  (`mega.set_voxel_tables`, a uint8 grid and a grid of ids past 255),
+  both calls equal to the plain DDA; the parent design (PR 14's D1,
+  built from `tools/torch_dda_trials.py`) timed on the random rays; then
+  the slice's path at 1280x768 on the glass box scene: the exact Whitted
   frame (`exact_fallback=True`, its fallback on D1) and the wavefront
   `Renderer` (full shading, 8 bounces, every traversal on D1), each
   equal field for field to its plain frame (B1 / B2 / the DDA plain;
-  `composite.PLAIN`) and timed beside it;
+  `composite.PLAIN`) and timed beside it, and each frame's D1 calls
+  replayed on D1 and on the parent design in turns;
 - the reference's default scene: `render_whitted_multi` over five
   separate volumes (`make_drone_scene`: the glass box and four turned
   drones, one laser capsule) with game_demo's config at 1280x768, every
@@ -63,8 +69,11 @@ them:
   blob, 128 steps), inverse_128's step (131,072 ring rays, 128^3, 192
   steps), the edge rays (+-0 directions, misses), a z-slab with shifted
   origins and sigma with zeros and albedo with negative entries, each
-  timed and bounded; then the main path, the wavefront `Trainer.fit` at
-  inverse_128's width, beside the same step on the plain march;
+  timed and bounded, D3 beside its glue (the record pack, the zeroed
+  gradient record, the unpack) and beside the parent design (PR 15's
+  D3, built from `tools/torch_diff_trials.py`); then the main path, the
+  wavefront `Trainer.fit` at inverse_128's width, beside the same step on
+  the plain march;
 - the parallel layer at inverse_128_32views' width on the wavefront
   march (D2 / D3): `Trainer.fit` on one device and under an NCCL world of one
   (`make_train_step`); the worker (`python -m
@@ -116,12 +125,16 @@ ms and idle share, and its ray lists replayed: `lists_ms`,
 rays, the bitmap, and the occupancy words and material bytes the list can
 touch, `list_bound_bytes`) and in the default scene's frame (`multi`: the
 same, host syncs a frame, us per O(1) edit, and game_demo's numbers under
-`game`); D1 (`dda`) its 1 M random rays as its own numbers, every list
-under `lists` and the two frames under `exact_whitted` and `wavefront`
-(ms, device busy, kernels, host syncs, D1 launches and device ms a frame,
-the plain frame's ms, D1's bound summed over the frame's calls); D2 and
-D3 (`diff_fwd`, `diff_bwd`) their numbers on inverse_128's step, each
-[march] input under `inputs`, `grad_err_rel`, and the `Trainer.fit` step
+`game`); D1 (`dda`) its 1 M random rays as its own numbers and the
+parent design's device ms on them (`parent_device_ms`), every list under
+`lists`, the in-place edits under `edits` and the two frames under
+`exact_whitted` and `wavefront` (ms, device busy, kernels, host syncs,
+D1 launches and device ms a frame, the plain frame's ms, D1's bound
+summed over the frame's calls, and the frame's D1 calls replayed on D1
+and on the parent design: `replay_device_ms`, `parent_replay_device_ms`);
+D2 and D3 (`diff_fwd`, `diff_bwd`) their numbers on inverse_128's step,
+each [march] input under `inputs` (D3 also `whole_device_ms`, its glue
+included, and `parent_device_ms`), `grad_err_rel`, and the `Trainer.fit` step
 on them and on the plain march (`trainer_fit`, `trainer_fit_plain`: ms,
 busy, idle, kernels and host syncs a step); B1 and B2 their `render_vox` launches and
 kernel-vs-plain error (`render_vox`); B1 its numbers on the surface path
@@ -140,6 +153,7 @@ the repository.
 Run from the repository root:  python3 chip_smoke.py
 """
 
+import contextlib
 import functools
 import json
 import math
@@ -198,6 +212,22 @@ CAM_OPS_PER_PIXEL = 60          # raygen and shading tail (frame.cuh)
 
 def log(msg):
     print(msg, flush=True)
+
+
+@functools.lru_cache(maxsize=None)
+def parent_design(tool):
+    """(the trial tool ``tool`` of tools/, the library of its parent
+    variant): the design a redesigned kernel replaced, built beside the
+    committed one for a comparison in the same run."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(tool, os.path.join(ROOT, "tools",
+                                                                     f"{tool}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    lib, ptxas = mod.build_variants(["parent"])["parent"]
+    for line in ptxas:
+        log(f"[build] {tool} parent: {line}")
+    return mod, lib
 
 
 PHASE_S = {}   # seconds spent in each phase function, summed over its calls
@@ -1628,6 +1658,7 @@ DDA_EQUAL = ("mat", "axis", "steps", "entry_axis", "valid", "resolved", "step_si
 DDA_T = ("t", "slab_tmin", "slab_tmax")
 DDA_BUDGET_STEPS = 6            # tests/test_torch_dda.py::test_dda_medium_step_budget_exit
 DDA_SHAPE_N = 1 << 18           # rays of the medium, scan, shadow and stacked lists
+DDA_EDITS = 64                  # voxels carved, and as many filled, between two D1 calls
 DF_SIZE = (WH_W, WH_H)          # the slice's two frames (full_whitted_720p's size)
 DF_SMALL = (WH_SMALL_W, WH_SMALL_H)
 DF_PLAIN_LIMIT_S = 60.0         # a plain frame over this is held at DF_HALF instead
@@ -1712,11 +1743,17 @@ def dda_lists(vol, o_rand, d_rand, device="cuda", n=DDA_SHAPE_N):
     return out
 
 
-def compare_dda(tag, k, p, quiet=False):
+def compare_dda(tag, k, p, quiet=False, rays=None):
     """D1 against the plain DDA: integer fields, flags and step signs
-    equal, t / slab tmin / slab tmax within T_ATOL.  Returns max |d|."""
+    equal, t / slab tmin / slab tmax NaN on the same rays and within
+    T_ATOL elsewhere; ``rays`` a mask of the rays compared (default all).
+    Returns max |d|."""
+    if rays is not None:
+        k, p = ({f: x[f][rays] for f in x} for x in (k, p))
     bad = [f for f in DDA_EQUAL if not torch.equal(k[f], p[f])]
-    err = max(float((k[f] - p[f]).abs().max()) if k[f].numel() else 0.0 for f in DDA_T)
+    bad += [f for f in DDA_T if not torch.equal(torch.isnan(k[f]), torch.isnan(p[f]))]
+    err = max(float(torch.nan_to_num(k[f] - p[f]).abs().max()) if k[f].numel() else 0.0
+              for f in DDA_T)
     if not quiet or bad or err > T_ATOL:
         log(f"[{tag}] D1 vs plain: {k['t'].numel()} rays, unequal fields {bad}, "
             f"t / slab max |d| {err:.3g}")
@@ -1772,11 +1809,87 @@ def dda_split(tag, grid, bocc, o, d, vpu, kw, full_p):
     return err
 
 
+def _voxels_along(o, d, t, vpu, shape, n):
+    """Up to n distinct voxels (z, y, x) at o + d * t of the rays whose t
+    is finite, in ray order."""
+    p = (o + d * t[:, None]) * vpu
+    ok = torch.isfinite(p).all(dim=1) & (t < 1e30)
+    zyx = torch.floor(p[ok]).long().flip(1).cpu().numpy()
+    zyx = zyx[((zyx >= 0) & (zyx < np.array(shape))).all(axis=1)]
+    _, first = np.unique(zyx, axis=0, return_index=True)
+    return zyx[np.sort(first)[:n]]
+
+
+def dda_edits(vol, o, d, device="cuda", n=DDA_EDITS):
+    """D1 across in-place edits of its tables: the bench volume packed
+    (`mega.pack_tables`: a uint8 grid) and packed with the voxels of its
+    commonest id as the only air (ids 256 | id: D1 reads a solid voxel's id
+    from the int32 grid), each traced, edited with `mega.set_voxel_tables`
+    (``n`` of the voxels the rays hit carved, ``n`` voxels just in front of
+    hits filled), and traced again.  Both calls equal the plain DDA on the
+    tables as they stand, and the edits change the second call's hits (a
+    stale derived table would leave them)."""
+    from voxel_tracer_tpu_torch.ops import dda
+    from voxel_tracer_tpu_torch.ops.cuda import dda as d1
+    from voxel_tracer_tpu_torch.ops.cuda import mega
+    grid = vol.grid
+    ids, counts = np.unique(grid[grid > 0], return_counts=True)
+    g = int(ids[np.argmax(counts)])
+    res, err = {}, 0.0
+    for tag, occupied in (("uint8 grid", None), ("ids past 255", grid != g)):
+        tb = mega.pack_tables(grid, vol.palette, vol.vpu, device, occupied=occupied)
+
+        def both(when):
+            args = (tb.grid, tb.brick_occ, o, d, vol.vpu)
+            k = d1.intersect_volume_local(*args)
+            e = compare_dda(f"dda edits {tag} {when}", k, dda.intersect_volume_local(*args),
+                            quiet=True)
+            return k, e
+
+        before, e0 = both("before")
+        half = 0.5 / vol.vpu
+        carve = _voxels_along(o, d, before["t"] + half, vol.vpu, grid.shape, n)
+        fill = _voxels_along(o, d, before["t"] - half, vol.vpu, grid.shape, n)
+        for (z, y, x), val, solid in [(v, 0, False) for v in carve] + \
+                                     [(v, 200, True) for v in fill]:
+            mega.set_voxel_tables(tb, x, y, z, val,
+                                  occupied=None if occupied is None else solid)
+        after, e1 = both("after")
+        changed = int((after["t"] != before["t"]).sum())
+        log(f"[dda] edits, {tag}: {len(carve)} voxels carved and {len(fill)} filled in "
+            f"place between two D1 calls on {o.shape[0]} rays; {changed} rays change; each "
+            f"call equal to the plain DDA (t max |d| {max(e0, e1):.3g})")
+        require(changed > 0, f"dda edits {tag}: the edits changed no ray")
+        err = max(err, e0, e1)
+        res[tag.replace(" ", "_")] = dict(carved=len(carve), filled=len(fill), changed=changed)
+    return res, err
+
+
+def dda_parent_turns(calls, device_ms=None):
+    """Device ms a replay of ``calls`` [((args, kw), ...)] on D1 and on the
+    parent design, timed in turns (D1, parent, parent, D1); the parent's
+    outputs held equal to D1's first (on the rays it agrees with the plain
+    DDA on: `parent_rays`)."""
+    from voxel_tracer_tpu_torch.ops.cuda import _build
+    mod, lib = parent_design("torch_dda_trials")
+    committed = _build.load("dda")
+    runs = {"d1": mod.runner("committed", committed, calls),
+            "parent": mod.runner("parent", lib, calls)}
+    for (args, _kw), k, p in zip(calls, runs["d1"](), runs["parent"]()):
+        compare_dda("dda parent", p, k, quiet=True, rays=mod.parent_rays(args))
+    got = {"d1": [], "parent": []}
+    for name in ("d1", "parent", "parent", "d1"):
+        got[name].append(mod.dda_device_ms(runs[name], 2, len(calls)))
+    return {k: None if None in v else sum(v) / len(v) for k, v in got.items()}
+
+
 @timed_phase
 def phase_dda(vol, o_rand, d_rand, device="cuda", n=DDA_SHAPE_N):
     """[dda] D1 against the plain DDA (`ops/dda.py`) on the same CUDA inputs,
-    list by list: timed (events, device, plain), bounded; the batch rule
-    on the medium budget list split in two.  On the CPU (a rehearsal) the
+    list by list: timed (events, device, plain), bounded, and beside the
+    parent design; the batch rule on the medium budget list split in two;
+    the stacked list with the bitmap read from global memory; in-place
+    edits between two calls (`dda_edits`).  On the CPU (a rehearsal) the
     wrapper runs the plain DDA and nothing is timed."""
     from voxel_tracer_tpu_torch.ops import dda
     from voxel_tracer_tpu_torch.ops.cuda import dda as d1
@@ -1788,6 +1901,13 @@ def phase_dda(vol, o_rand, d_rand, device="cuda", n=DDA_SHAPE_N):
         err = max(err, compare_dda(tag, k, p))
         if tag == "medium budget":
             err = max(err, dda_split(tag, *args, kw, p))
+        if tag == "stacked":
+            d1.GLOBAL_BITMAP = True
+            try:
+                err = max(err, compare_dda(f"{tag}, bitmap from global memory",
+                                           d1.intersect_volume_local(*args, **kw), p))
+            finally:
+                d1.GLOBAL_BITMAP = False
         if device == "cpu":
             continue
         rays, steps = o.shape[0], int(k["steps"].sum())
@@ -1800,9 +1920,19 @@ def phase_dda(vol, o_rand, d_rand, device="cuda", n=DDA_SHAPE_N):
             f"{hits:.4f}, unresolved {int((~k['resolved']).sum())}; D1 {ms:.4f} ms a call "
             f"(events), device {'not measured' if dev is None else f'{dev:.4f} ms'}; plain "
             f"{plain_ms:.1f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}); t max |d| 0 expected")
+        turns = dda_parent_turns([(args, kw)])
+        log(f"[dda] {tag}: device ms a call in turns (D1, parent, parent, D1): D1 "
+            f"{_opt_ms(turns['d1'])}, parent design (PR 14) {_opt_ms(turns['parent'])}")
         res[tag] = dict(rays=rays, steps=steps, ms=ms, device_ms=dev, plain_ms=plain_ms,
-                        bound_ms=bnd[0], bound_by=bnd[1])
-    return res, err
+                        bound_ms=bnd[0], bound_by=bnd[1], turns_device_ms=turns["d1"],
+                        parent_device_ms=turns["parent"])
+    edits, e = dda_edits(vol, o_rand[:n], d_rand[:n], device)
+    res["edits"] = edits
+    return res, max(err, e)
+
+
+def _opt_ms(x):
+    return "not measured" if x is None else f"{x:.4f} ms"
 
 
 def _frame_numbers(tag, frame, reps):
@@ -1857,6 +1987,31 @@ def d1_frame_bound(frame, ix=None):
             ix.dda_fn = real
     by = {k: sum(ms for ms, b in calls if b == k) for k in ("bytes", "operations")}
     return sum(by.values()), max(by, key=by.get), len(calls)
+
+
+@contextlib.contextmanager
+def tables_derived():
+    """Counts the derivations of D1's tables (`ops/cuda/dda.dda_tables`)
+    inside the block: [count]."""
+    from voxel_tracer_tpu_torch.ops.cuda import dda as d1
+    real, count = d1.dda_tables, [0]
+
+    def counted(*args):
+        count[0] += 1
+        return real(*args)
+
+    d1.dda_tables = counted
+    try:
+        yield count
+    finally:
+        d1.dda_tables = real
+
+
+def _require_cached(tag, derived):
+    """D1's tables were derived in the frame before the timed ones: the
+    timed frames, which edit nothing, must find them all cached."""
+    log(f"[{tag}] D1's tables derived {derived[0]} times over the timed frames (cached)")
+    require(derived[0] == 0, f"{tag}: D1's tables were derived again without an edit")
 
 
 def _plain_frame(fn, sync):
@@ -1918,8 +2073,11 @@ def phase_dda_frames(device="cuda", size=DF_SIZE, small=DF_SMALL):
         f"(B1, B2 and the DDA plain) in {plain_s:.1f} s")
     res["exact_whitted"] = dict(launches=launches, plain_ms=plain_s * 1e3, max_abs_err=err)
     if on_card:
-        res["exact_whitted"].update(_frame_numbers(
-            "dda frames exact", lambda i: whitted(exact, size, WH_THETA + 0.001 * (i % 8)), 4))
+        with tables_derived() as derived:
+            res["exact_whitted"].update(_frame_numbers(
+                "dda frames exact", lambda i: whitted(exact, size, WH_THETA + 0.001 * (i % 8)),
+                4))
+        _require_cached("dda frames exact", derived)
         bnd = d1_frame_bound(lambda: whitted(exact, size), exact)
         log(f"[dda frames] exact Whitted: D1 bound {bnd[0]:.4f} ms a frame ({bnd[1]}) over "
             f"its {bnd[2]} calls")
@@ -1953,12 +2111,24 @@ def phase_dda_frames(device="cuda", size=DF_SIZE, small=DF_SMALL):
     if on_card:
         r = Renderer(cfg, device=device)
         cams = [glass_box_camera(merged, WH_THETA + 0.001 * i, w, h) for i in range(4)]
-        res["wavefront"].update(_frame_numbers(
-            "dda frames wavefront", lambda i: r.render(sd, cams[i % 4], frame=0), 3))
+        with tables_derived() as derived:
+            res["wavefront"].update(_frame_numbers(
+                "dda frames wavefront", lambda i: r.render(sd, cams[i % 4], frame=0), 3))
+        _require_cached("dda frames wavefront", derived)
         bnd = d1_frame_bound(lambda: r.render(sd, cams[0], frame=0))
         log(f"[dda frames] wavefront Renderer: D1 bound {bnd[0]:.4f} ms a frame ({bnd[1]}) "
             f"over its {bnd[2]} calls")
         res["wavefront"].update(bound_ms=bnd[0], bound_by=bnd[1])
+        # each frame's D1 calls, captured and replayed on D1 and on the parent
+        mod, _lib = parent_design("torch_dda_trials")
+        for key, calls in mod.frame_calls(size).items():
+            turns = dda_parent_turns(calls)
+            log(f"[dda frames] {key}: its {len(calls)} D1 calls replayed, device ms a frame in "
+                f"turns (D1, parent, parent, D1): D1 {_opt_ms(turns['d1'])}, parent design "
+                f"(PR 14) {_opt_ms(turns['parent'])}")
+            res["exact_whitted" if key == "exact whitted" else "wavefront"].update(
+                replay_calls=len(calls), replay_device_ms=turns["d1"],
+                parent_replay_device_ms=turns["parent"])
     return res
 
 
@@ -2570,14 +2740,14 @@ def march_pair(tag, sigma, albedo, o, d, vpu, max_steps, smi=None):
     err = max(_maxabs(torch.where(torch.isnan(p), 0.0, k - p)) for k, p in zip(ok, op))
     g_rel = max(_maxabs(x - y) / max(_maxabs(y), 1e-30) for x, y in ((sk, sp), (ak, ap)))
     g_abs = max(_maxabs(x - y) for x, y in ((sk, sp), (ak, ap)))
-    zero_ok = not bool(sk[sigma == 0].any())
+    zero_ok = not bool(sk[sigma <= 0].any())
     log(f"[march] {tag}: {n} rays, grid {tuple(sigma.shape)}, {max_steps} steps; D2 vs plain "
         f"color / trans / depth max |d| {err:.3g} (atol {MARCH_ATOL}), NaN depth on "
         f"{nan_k[2]} rays, equal masks {nan_eq}; D3 vs plain grad rel err {g_rel:.3g} "
-        f"(rtol {MARCH_GRAD_RTOL}), max |d| {g_abs:.3g}, d sigma 0 where sigma is 0: {zero_ok}")
+        f"(rtol {MARCH_GRAD_RTOL}), max |d| {g_abs:.3g}, d sigma 0 where sigma <= 0: {zero_ok}")
     require(nan_eq and err <= MARCH_ATOL, f"{tag}: D2 differs from the plain march: {err}")
     require(g_rel <= MARCH_GRAD_RTOL, f"{tag}: D3 differs from the plain march: {g_rel}")
-    require(zero_ok, f"{tag}: D3 gives d sigma where sigma is 0")
+    require(zero_ok, f"{tag}: D3 gives d sigma where sigma <= 0")
     require(bool((op[1] < 1).any()), f"{tag}: no ray met density")
     out = dict(rays=n, err_fwd=err, err_bwd=g_abs, grad_err_rel=g_rel)
     if smi is None:
@@ -2607,7 +2777,34 @@ def march_pair(tag, sigma, albedo, o, d, vpu, max_steps, smi=None):
             f"({steps / n:.1f} a ray), {valid} valid segments; {smi}")
         out[mode] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bnd[0],
                          bound_by=bnd[1], steps=steps, valid_segments=valid)
+    out["bwd"].update(d3_parent_turns(tag, (s, a, o, d, vpu, max_steps, c, t, dp, *cts),
+                                      (sp, ap), smi))
     return out
+
+
+def d3_parent_turns(tag, args, ref, smi):
+    """D3's device ms and the whole backward's (D3 and its glue: the record
+    pack, the zeroed gradient record, the unpack), and the same of the
+    parent design (PR 15's D3: two zeroed gradient grids, D3), in turns
+    (D3, parent, parent, D3) on march_bwd's arguments ``args``; the
+    parent's gradients held to the plain backward's ``ref`` first."""
+    from voxel_tracer_tpu_torch.ops.cuda import _build
+    mod, lib = parent_design("torch_diff_trials")
+    runs = {"d3": mod.call("committed", _build.load("diff"), args),
+            "parent": mod.call("parent", lib, args)}
+    got = runs["parent"]()
+    rel = max(_maxabs(g - r) / max(_maxabs(r), 1e-30) for g, r in zip(got, ref))
+    require(rel <= MARCH_GRAD_RTOL, f"{tag}: the parent D3 differs from the plain march: {rel}")
+    turns = {"d3": [], "parent": []}
+    for name in ("d3", "parent", "parent", "d3"):
+        turns[name].append(mod.bwd_device_ms(runs[name], 3))
+    mean = {k: [None if any(x[j] is None for x in v) else sum(x[j] for x in v) / len(v)
+                for j in (0, 1)] for k, v in turns.items()}
+    log(f"[march] {tag}: D3 in turns with the parent design (PR 15), device ms a call: D3 "
+        f"{_opt_ms(mean['d3'][0])}, with its glue {_opt_ms(mean['d3'][1])}; parent "
+        f"{_opt_ms(mean['parent'][0])}, with its zeroing {_opt_ms(mean['parent'][1])}; {smi}")
+    return dict(turns_device_ms=mean["d3"][0], whole_device_ms=mean["d3"][1],
+                parent_device_ms=mean["parent"][0], parent_whole_device_ms=mean["parent"][1])
 
 
 def _step_numbers(tag, run, counts, smi):
@@ -3156,6 +3353,8 @@ def main():
                         dfr["wavefront"]["max_abs_err"]),
         ms=rnd["ms"], device_ms=rnd["device_ms"], plain_ms=rnd["plain_ms"],
         bound_ms=rnd["bound_ms"], bound_by=rnd["bound_by"], library_ms=None,
+        parent_device_ms=rnd["parent_device_ms"],
+        edits=dda_lists_res.pop("edits"),
         lists={k.replace(" ", "_"): v for k, v in dda_lists_res.items()},
         exact_whitted=dfr["exact_whitted"], wavefront=dfr["wavefront"]))
     inv = march["inputs"]["inverse_128 step"]
@@ -3166,7 +3365,10 @@ def main():
             replaces=f"voxel_tracer_tpu/ops/diff.py:{line}", launches=march["launches"][name],
             max_abs_err=march[f"err_{mode}"], ms=t["ms"], device_ms=t["device_ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-            library_ms=None, grad_err_rel=max(r["grad_err_rel"] for r in march["inputs"].values()),
+            library_ms=None, **({"whole_device_ms": t["whole_device_ms"],
+                                 "parent_device_ms": t["parent_device_ms"]}
+                                if mode == "bwd" else {}),
+            grad_err_rel=max(r["grad_err_rel"] for r in march["inputs"].values()),
             inputs={k.replace(" ", "_"): v[mode] for k, v in march["inputs"].items()},
             trainer_fit=march["fit"], trainer_fit_plain=march["fit_plain"]))
     log(json.dumps({"kernels": kernels}))

@@ -320,23 +320,27 @@ def _global_kernels():
 
 def test_every_kernel_maps_to_one_label():
     """Each kernel of csrc/*.cu has one label: B1-B7 the Pallas kernels'
-    counterparts, D1 the DDA's two passes (dda_kernel, dda_exhaust_kernel),
+    counterparts, D1 the DDA's passes (dda_kernel<true>, dda_kernel<false>:
+    the brick bitmap from shared or from global memory; dda_exhaust_kernel),
     D2 and D3 the differentiable march's forward and backward."""
     names = _global_kernels()
-    assert len(names) == 11, names
+    assert len(names) == 12, names
     labels = []
     for name in names:
         hits = [lab for key, lab in measure.KERNEL_LABELS.items()
                 if measure.label_of(f"void {name}(int)") == lab and key == name]
         assert len(hits) == 1, (name, hits)
         labels += hits
-    assert sorted(labels) == [f"B{i}" for i in range(1, 8)] + ["D1", "D1", "D2", "D3"]
+    assert sorted(labels) == [f"B{i}" for i in range(1, 8)] + ["D1", "D1", "D1", "D2", "D3"]
 
 
 def test_dda_passes_sum_under_one_label():
     """D1's passes, as the profiler prints them, add up under "D1"; a
     longer symbol that ends in the name is glue."""
-    ev = [("void (anonymous namespace)::dda_kernel((anonymous namespace)::DdaArgs)", 0.0, 40.0),
+    ev = [("void (anonymous namespace)::dda_kernel<true>((anonymous namespace)::DdaArgs)",
+           0.0, 30.0),
+          ("void (anonymous namespace)::dda_kernel<false>((anonymous namespace)::DdaArgs)",
+           30.0, 40.0),
           ("void (anonymous namespace)::dda_exhaust_kernel((anonymous namespace)::DdaArgs)",
            40.0, 50.0),
           ("void (anonymous namespace)::mega_rays_kernel(float const*)", 50.0, 60.0),
@@ -344,8 +348,8 @@ def test_dda_passes_sum_under_one_label():
     s = measure.split_events(ev, frames=1, wall_ms=0.1)
     assert s["kernel_ms"] == {"B2": pytest.approx(0.01), "D1": pytest.approx(0.05)}
     assert s["glue_ms"] == pytest.approx(0.02)
-    assert measure.label_of("void my_dda_kernel(int)") is None
-    assert measure.label_of("void dda_kernel2(int)") is None
+    assert measure.label_of("void my_dda_kernel<true>(int)") is None
+    assert measure.label_of("void dda_kernel<true>2(int)") is None
 
 
 def test_suite_imports_no_jax():

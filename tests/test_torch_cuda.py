@@ -20,7 +20,9 @@ edited grid, and on the indep volumes that fill the bitmap or walk
 hundreds of bricks); image within 1 LSB (expf in the sky).
 The DDA kernel (D1) against the plain DDA (`ops/dda.py`) in every mode:
 every output equal, t bit for bit (the same float32 program; stochastic
-shadows key on the hit cell).
+shadows key on the hit cell), NaN on the same rays (NaN directions); also
+with the bitmap read from global memory, on uint8 grids and ids outside
+[0, 255], and across in-place edits of its tables.
 The differentiable march (D2, D3) against the plain march (`ops/diff.py`):
 color, trans and depth within 1e-6 and NaN on the same rays; gradients
 within 1e-4 x max|g| (atomics), d sigma 0 where sigma is 0.
@@ -788,6 +790,8 @@ def _dda_case(mode, dev):
     d[np.arange(n // 16), rng.randint(0, 3, n // 16)] = 1.0
     if mode == "zero_dirs":
         d = np.where(rng.rand(n, 3) < 0.5, -0.0, 0.0).astype(np.float32)
+    if mode == "nan_dirs":      # a missed pixel's shadow ray: NaN direction
+        d[::4] = np.nan
     if mode.startswith("stacked"):
         grids = [VoxelVolume.noise_filled((32, 32, 32)).grid,
                  _sphere_volume().grid.repeat(2, 0).repeat(2, 1).repeat(2, 2),
@@ -806,6 +810,8 @@ def _dda_case(mode, dev):
     g[14:20, 8:12, 14:18] = 40
     g[24:30, 6:9, 20:24] = 12
     o = rng.uniform(-0.1, 1.9, (n, 3)).astype(np.float32)
+    if mode == "nan_dirs":
+        o[1::8] *= np.float32(1e30)
     kw = {}
     if mode in ("medium", "medium_budget"):
         kw["medium"] = t(np.where(rng.rand(n) < 0.5, 4, 0).astype(np.int32))
@@ -820,8 +826,14 @@ def _dda_case(mode, dev):
     return t(g.astype(np.int32)), t(compute_brick_occ(g)), t(o), t(d), 20.0, kw
 
 
+def _same(a, b):
+    """Equal, NaN where the other is NaN."""
+    return torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(
+        torch.nan_to_num(a), torch.nan_to_num(b))
+
+
 @pytest.mark.parametrize("mode", ["first_hit", "medium", "medium_budget", "ignore", "shadow",
-                                  "stacked", "stacked_medium", "zero_dirs"])
+                                  "stacked", "stacked_medium", "zero_dirs", "nan_dirs"])
 def test_dda_kernel_matches_plain(cuda, mode):
     grid, bocc, o, d, vpu, kw = _dda_case(mode, cuda)
     before = dda_kernel.KERNEL_LAUNCHES["dda"]
@@ -831,11 +843,69 @@ def test_dda_kernel_matches_plain(cuda, mode):
     torch.cuda.synchronize()
     assert k.keys() == p.keys()
     for f in k:
-        assert torch.equal(k[f], p[f]), f
+        assert _same(k[f], p[f]), f
     if mode != "zero_dirs":
         assert bool((k["t"] < 1e30).any())
     if mode == "medium_budget":
         assert bool((~k["resolved"]).any())
+
+
+@pytest.mark.parametrize("mode", ["first_hit", "shadow", "stacked", "stacked_medium"])
+def test_dda_kernel_bitmap_from_global_memory(cuda, mode, monkeypatch):
+    """The kernel's branch for bitmaps over SMEM_BITMAP_MAX_WORDS, forced."""
+    monkeypatch.setattr(dda_kernel, "GLOBAL_BITMAP", True)
+    grid, bocc, o, d, vpu, kw = _dda_case(mode, cuda)
+    k = dda_kernel.intersect_volume_local(grid, bocc, o, d, vpu, **kw)
+    p = dda.intersect_volume_local(grid, bocc, o, d, vpu, **kw)
+    for f in k:
+        assert torch.equal(k[f], p[f]), f
+
+
+@pytest.mark.parametrize("ids", ["uint8", "past_255", "negative"])
+@pytest.mark.parametrize("mode", ["first_hit", "medium", "ignore", "shadow"])
+def test_dda_kernel_grid_dtypes_and_wide_ids(cuda, ids, mode):
+    """A uint8 grid (D1 never reads the int32 ids) and ids outside [0, 255]
+    (D1 reads a solid voxel's id from the int32 grid), in every mode."""
+    grid, bocc, o, d, vpu, kw = _dda_case(mode, cuda)
+    if ids == "uint8":
+        grid = grid.to(torch.uint8)
+    else:
+        grid = torch.where(grid == 40, 300 if ids == "past_255" else -7, grid)
+        if mode == "medium":
+            kw["medium"] = torch.where(kw["medium"] > 0, 300, 0).to(torch.int32) \
+                if ids == "past_255" else kw["medium"]
+    k = dda_kernel.intersect_volume_local(grid, bocc, o, d, vpu, **kw)
+    p = dda.intersect_volume_local(grid, bocc, o, d, vpu, **kw)
+    for f in k:
+        assert torch.equal(k[f], p[f]), f
+    if ids != "uint8" and mode == "first_hit":
+        assert bool((k["mat"] == (300 if ids == "past_255" else -7)).any())
+
+
+@pytest.mark.parametrize("occupied", [False, True])
+def test_dda_kernel_follows_in_place_edits(cuda, occupied):
+    """Voxels edited in place (`mega.set_voxel_tables`) between two calls:
+    each call equals the plain DDA on the tables as they stand; the edits
+    change the second call (D1's derived tables are rebuilt)."""
+    vol = VoxelVolume.noise_filled((32, 40, 24))
+    occ = (vol.grid != int(np.bincount(vol.grid[vol.grid > 0]).argmax())) if occupied else None
+    tb = mega.pack_tables(vol.grid, vol.palette, vol.vpu, cuda, occupied=occ)
+    o, d = _local_rays(cuda, 8192, -0.3, 1.6, 5)
+    args = lambda: (tb.grid, tb.brick_occ, o, d, vol.vpu)  # noqa: E731
+    k1 = dda_kernel.intersect_volume_local(*args())
+    p1 = dda.intersect_volume_local(*args())
+    for f in k1:
+        assert torch.equal(k1[f], p1[f]), f
+    hit = (k1["t"] < 1e30).nonzero()[:32, 0]
+    cells = torch.floor((o[hit] + d[hit] * (k1["t"][hit, None] + 0.5 / vol.vpu)) * vol.vpu)
+    for x, y, z in cells.long().tolist():
+        if 0 <= x < 24 and 0 <= y < 40 and 0 <= z < 32:
+            mega.set_voxel_tables(tb, x, y, z, 0, occupied=False if occupied else None)
+    k2 = dda_kernel.intersect_volume_local(*args())
+    p2 = dda.intersect_volume_local(*args())
+    for f in k2:
+        assert torch.equal(k2[f], p2[f]), f
+    assert bool((k2["t"] != k1["t"]).any())
 
 
 def test_dda_kernel_empty_list_and_bad_input(cuda):

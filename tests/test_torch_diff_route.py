@@ -22,9 +22,9 @@ tests/test_torch_cuda.py's (card only).  Here:
   the batch's within 1e-6 x max|g| (float32 sums in other orders).  The
   one exception is the depth of a ray whose set-up leaves t_exit or a
   first crossing at -inf (an axis-parallel ray outside the slab on its
-  parallel axis): its dead steps make its depth NaN in JAX's scan and in
-  the plain loop whenever the loop runs, and 0 when it is alone (the
-  loop never starts); D2 writes NaN for it, as JAX does;
+  parallel axis): its dead steps make its depth NaN in JAX's scan; the
+  plain loop and D2 decide that NaN from the set-up, so it is NaN alone
+  and in any batch;
 - the wrapper on CPU tensors equals the plain version bit for bit, and
   both equal JAX's `render_density` at tests/test_torch_diff.py's
   tolerances (outputs 1e-5, gradients 1e-4 x max|g|), forward and
@@ -144,10 +144,8 @@ def test_rays_march_independently(scene, mode):
         pa += g2
     for name, got, ref in (("color", pc, c), ("trans", pt, t), ("depth", pd[~nan], dp[~nan])):
         np.testing.assert_array_max_ulp(got, ref, maxulp=2)
-    # the exception: NaN where the part's loop ran, 0 where it never started
-    assert (np.isnan(pd[nan]) | (pd[nan] == 0)).all()
-    if mode == "alone":
-        assert (pd[nan] == 0).all()
+    # the exception: NaN in every part, whether or not the part's loop ran
+    assert np.isnan(pd[nan]).all()
     for name, got, ref in (("d sigma", ps, gs), ("d albedo", pa, ga)):
         err = np.abs(got - ref).max()
         assert err <= 1e-6 * np.abs(ref).max(), (name, err)
@@ -169,16 +167,45 @@ def test_dead_steps_leave_nan_depth_as_in_jax(scene):
     assert np.isfinite(c).all() and np.isfinite(t).all()
 
 
+_MISSES_O = np.array([[3.0, 3.0, 3.0], [-1.0, -1.0, -1.0], [-0.5, 0.5, 0.5]], np.float32)
+_MISSES_D = np.array([[1.0, 0.0, 0.0], [0.0, 0.0, -1.0], [-1.0, 0.0, 0.0]], np.float32)
+
+
 def test_missed_rays_stay_untouched():
     """A batch of rays that all miss the slab: the loop never starts, and
-    T = 1, C = 0, D = 0 with no gradient (the first ray is one of the
-    exception's, whose depth a running loop would make NaN)."""
+    T = 1, C = 0 with no gradient; the depth is JAX's render_density's,
+    NaN where JAX has NaN (the first ray is one of the exception's) and 0
+    elsewhere."""
     sigma, albedo, _, _ = _random_scene()
-    o = np.array([[3.0, 3.0, 3.0], [-1.0, -1.0, -1.0], [-0.5, 0.5, 0.5]], np.float32)
-    d = np.array([[1.0, 0.0, 0.0], [0.0, 0.0, -1.0], [-1.0, 0.0, 0.0]], np.float32)
+    o, d = _MISSES_O, _MISSES_D
     (c, t, dp), (gs, ga) = _render(sigma, albedo, o, d, _cotangents(3))
-    assert (c == 0).all() and (t == 1).all() and (dp == 0).all()
+    ref = np.asarray(jdiff.render_density(jnp.asarray(sigma), jnp.asarray(albedo),
+                                          jnp.asarray(o), jnp.asarray(d), VPU, STEPS)["depth"])
+    assert np.isnan(ref[0]) and not np.isnan(ref[1:]).any()
+    np.testing.assert_array_equal(dp, ref)
+    assert (c == 0).all() and (t == 1).all()
     assert not gs.any() and not ga.any()
+
+
+def test_nan_depth_ray_alone_and_in_a_batch():
+    """The exception's ray rendered alone (the loop never starts) and
+    inside a batch whose other rays enter the grid (the loop runs): the
+    same NaN depth both times, JAX's, and the batch's other rays keep the
+    depth they have without it."""
+    sigma, albedo, o, d = _random_scene(64)
+    ray_o, ray_d = _MISSES_O[:1], _MISSES_D[:1]
+    assert _nan_depth_rays(sigma, ray_o, ray_d).all()
+    (_, t1, alone), _ = _render(sigma, albedo, ray_o, ray_d, _cotangents(1))
+    bo, bd = np.concatenate([o, ray_o]), np.concatenate([d, ray_d])
+    (_, tb, batch), _ = _render(sigma, albedo, bo, bd, _cotangents(65))
+    assert (tb[:-1] < 1).any()                       # the batch's loop runs
+    (_, _, rest), _ = _render(sigma, albedo, o, d, _cotangents(64))
+    ref = np.asarray(jdiff.render_density(jnp.asarray(sigma), jnp.asarray(albedo),
+                                          jnp.asarray(bo), jnp.asarray(bd), VPU,
+                                          STEPS)["depth"])
+    assert np.isnan(alone[0]) and np.isnan(batch[-1]) and np.isnan(ref[-1])
+    assert t1[0] == 1 and tb[-1] == 1
+    np.testing.assert_array_equal(batch[:-1], rest)
 
 
 # ---------------------------------------------------------------------------

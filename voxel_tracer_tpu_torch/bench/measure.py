@@ -59,7 +59,8 @@ SYNC_WARNING = "called a synchronizing CUDA operation"   # PyTorch's sync debug 
 
 # the hand-written kernels by the symbol the profiler prints, and the
 # TPU kernel (B) or XLA loop (D) each replaces (PERF.md's tables); D1's
-# two passes share its label
+# passes share its label (pass 1 a template on where the block reads the
+# brick bitmap from)
 KERNEL_LABELS = {
     "mega_camera_kernel": "B1",
     "mega_rays_kernel": "B2",
@@ -68,7 +69,8 @@ KERNEL_LABELS = {
     "coherent_kernel": "B5",
     "integrate_kernel<false>": "B6",
     "integrate_kernel<true>": "B7",
-    "dda_kernel": "D1",
+    "dda_kernel<true>": "D1",
+    "dda_kernel<false>": "D1",
     "dda_exhaust_kernel": "D1",
     "diff_fwd_kernel": "D2",
     "diff_bwd_kernel": "D3",

@@ -30,19 +30,18 @@
 // unchanged (tests/test_torch_diff_route.py renders every ray alone and
 // in batches to show it).  The exception is the depth of a ray whose
 // set-up puts t_exit or a first crossing at -inf (an axis-parallel ray
-// outside the slab on its parallel axis): its dead steps make
-// the depth NaN, in JAX and in the plain loop whenever the loop runs on;
-// the kernel writes NaN for it when max_steps >= 2.  A ray that misses
+// outside the slab on its parallel axis): its dead steps make the depth
+// NaN in JAX; the plain loop and the kernel write NaN for it from the
+// set-up when max_steps >= 2, whatever the batch.  A ray that misses
 // the slab never steps: T = 1, C = 0, D = 0 (or that NaN), and reads no
-// voxel.  A step that is not valid reads no voxel and adds nothing.
+// voxel.  A step that is not valid adds nothing (D3 may have requested
+// its voxel's record ahead).
 //
 // D2 accumulates (T, C, D) as ops/diff.py:_render_fwd_only does, in its
 // order.  D3 replays the march from the saved (C, T, D) and the
 // cotangents (gC, gT, gD) as ops/diff.py:_render_bwd does: the prefix
 // sums Cpre / Dpre, the suffixes C - Cpre and D - Dpre, relu = sigma > 0,
-// d sigma and d albedo of the step, added into zeroed gradient grids with
-// global atomic adds whose results are unused (RED), skipped where the
-// value is 0.
+// d sigma and d albedo of the step.
 //
 // Rounding: compiled with --fmad=false and no fast math; fmaf exactly
 // where the plain version calls dda._fma (the entry point and the first
@@ -52,16 +51,22 @@
 // backward's atomics sum in an order that changes from run to run, as
 // the plain version's index_add_ does on the card.
 //
-// Bound: a dependent chain per step (the crossing compares, one sigma and
-// three albedo loads of the current voxel, expf, ~25 FP32 operations
-// forward and ~50 backward) and the divergence of trip counts inside a
-// warp; no step of one ray can start before the last one's t.  The grids
-// (16 bytes a voxel: 4 MB at 64^3, 33.5 MB at 128^3) are read through the
-// read-only path and are mostly L2-resident; the backward's four scalar
-// reductions a step go to L2 (dsigma and d albedo: another 16 bytes a
-// voxel).  This first version keeps the plain (Z, Y, X) and (Z, Y, X, 3)
-// layouts and scalar atomics; an interleaved (sigma, r, g, b) record and
-// one red.global.add.v4.f32 a step, as B7 has, are the next step.
+// Bound: a dependent chain per step (the crossing compares, the current
+// voxel's loads, expf, ~25 FP32 operations forward and ~50 backward) and
+// the divergence of trip counts inside a warp; no step of one ray can
+// start before the last one's t.  D2 reads the plain (Z, Y, X) and
+// (Z, Y, X, 3) grids through the read-only path (16 bytes a voxel: 4 MB
+// at 64^3, 33.5 MB at 128^3, mostly L2-resident).  D3 also pays the
+// reductions of every valid segment into the gradient grids, in L2.  Its
+// design against both: it reads one interleaved (sigma, r, g, b) float4
+// record a voxel (ops/cuda/diff.pack_record, packed by the wrapper before
+// the launch) with one 16-byte load, requests the next voxel's record
+// before the current segment's arithmetic, and adds a segment's four
+// gradients with one float4 atomicAdd (sm_90: one RED.E.ADD.F32x4) into
+// a zeroed (Z * Y * X, 4) gradient record, skipped where all four are 0;
+// the wrapper then unpacks it into the (Z, Y, X) and (Z, Y, X, 3)
+// gradients (ops/cuda/diff.unpack_grads).  One reduction a segment in
+// place of up to four scalar ones into two arrays.
 //
 // Launchers are extern "C", run on the caller's stream, allocate nothing,
 // and return cudaGetLastError().
@@ -82,8 +87,8 @@ struct DiffArgs {
   const float* g_color;       // D3: cotangents (N, 3), (N,), (N,)
   const float* g_trans;
   const float* g_depth;
-  float* d_sigma;             // D3: zeroed (Z, Y, X) and (Z, Y, X, 3)
-  float* d_albedo;
+  const float4* rec;          // D3: (Z * Y * X,) (sigma, albedo r, g, b) records
+  float4* grec;               // D3: zeroed (Z * Y * X,) (d sigma, d albedo r, g, b)
   int n;
   int gx, gy, gz;
   int max_steps;
@@ -94,7 +99,8 @@ struct DiffArgs {
 namespace {
 
 constexpr float BIG_F32 = 1e30f;   // miss depth and clamp (math3d.py BIG_F32)
-constexpr int THREADS = 128;
+constexpr int THREADS = 128;       // D2's blocks
+constexpr int BWD_THREADS = 128;   // D3's blocks
 
 __device__ __forceinline__ bool neg_inf(float v) { return isinf(v) && v < 0.0f; }
 #define NAN_F32 __int_as_float(0x7fc00000)
@@ -127,75 +133,78 @@ __device__ __forceinline__ void axis_setup(float o, float d, float tmin, float v
   tm = fminf(v, BIG_F32);
 }
 
-// Marches ray i.  BWD = false: D2, writes (C, T, D).  BWD = true: D3,
-// replays the march and adds the ray's gradients.
-template <bool BWD>
-__device__ __forceinline__ void march_ray(const DiffArgs& a, int i) {
+// The set-up of diff._march_setup for one ray: the slab test, the entry
+// cell and the first crossing t of each axis, the steps and deltas; ok:
+// whether the ray enters; nan_depth: whether its depth is NaN (below).
+struct Setup {
+  float tmin, tmax;
+  bool ok, nan_depth;
+  int sx, sy, sz;
+  float dlx, dly, dlz;
+  int cx, cy, cz;
+  float tx, ty, tz;
+};
+
+__device__ __forceinline__ Setup march_setup(const DiffArgs& a, int i) {
   const float ox = __ldg(&a.orig[3 * i]), oy = __ldg(&a.orig[3 * i + 1]),
               oz = __ldg(&a.orig[3 * i + 2]);
   const float dx = __ldg(&a.dirs[3 * i]), dy = __ldg(&a.dirs[3 * i + 1]),
               dz = __ldg(&a.dirs[3 * i + 2]);
   const float vpu = a.vpu, rvpu = a.rvpu;
-
-  float tmin = 0.0f, tmax = 0.0f;
-  slab_axis(ox, dx, (float)a.gx / vpu, 0, tmin, tmax);
-  slab_axis(oy, dy, (float)a.gy / vpu, 1, tmin, tmax);
-  slab_axis(oz, dz, (float)a.gz / vpu, 2, tmin, tmax);
-  const bool ok = tmax - 1e-4f >= tmin;
+  Setup u;
+  u.tmin = 0.0f;
+  u.tmax = 0.0f;
+  slab_axis(ox, dx, (float)a.gx / vpu, 0, u.tmin, u.tmax);
+  slab_axis(oy, dy, (float)a.gy / vpu, 1, u.tmin, u.tmax);
+  slab_axis(oz, dz, (float)a.gz / vpu, 2, u.tmin, u.tmax);
+  u.ok = u.tmax - 1e-4f >= u.tmin;
 
   const bool px = !signbit(dx), py = !signbit(dy), pz = !signbit(dz);
-  const int sx = px ? 1 : -1, sy = py ? 1 : -1, sz = pz ? 1 : -1;
+  u.sx = px ? 1 : -1;
+  u.sy = py ? 1 : -1;
+  u.sz = pz ? 1 : -1;
   const float rx = 1.0f / dx, ry = 1.0f / dy, rz = 1.0f / dz;
   // clamp inf (axis-parallel rays) to BIG so 0 * delta stays 0, not NaN
-  const float dlx = fminf(fabsf(rx), BIG_F32) * rvpu, dly = fminf(fabsf(ry), BIG_F32) * rvpu,
-              dlz = fminf(fabsf(rz), BIG_F32) * rvpu;
-  int cx, cy, cz;
-  float tx, ty, tz;
-  axis_setup(ox, dx, tmin, vpu, rvpu, a.gx - 1, px, rx, cx, tx);
-  axis_setup(oy, dy, tmin, vpu, rvpu, a.gy - 1, py, ry, cy, ty);
-  axis_setup(oz, dz, tmin, vpu, rvpu, a.gz - 1, pz, rz, cz, tz);
+  u.dlx = fminf(fabsf(rx), BIG_F32) * rvpu;
+  u.dly = fminf(fabsf(ry), BIG_F32) * rvpu;
+  u.dlz = fminf(fabsf(rz), BIG_F32) * rvpu;
+  axis_setup(ox, dx, u.tmin, vpu, rvpu, a.gx - 1, px, rx, u.cx, u.tx);
+  axis_setup(oy, dy, u.tmin, vpu, rvpu, a.gy - 1, py, ry, u.cy, u.ty);
+  axis_setup(oz, dz, u.tmin, vpu, rvpu, a.gz - 1, pz, rz, u.cz, u.tz);
   // The scan steps a dead ray on.  Where the set-up leaves t_exit or a
   // first crossing at -inf, its first step ends at t = -inf, its next
   // step's segment depth t + dl / 2 is -inf or NaN, and w = 0 times it
-  // leaves the depth NaN (JAX's scan and ops/diff.py alike; such a ray
-  // has no valid segment).  That is the one output of a dead ray's steps
-  // that is not "x + 0"; it is reproduced here.
-  const bool nan_depth = a.max_steps >= 2 && (neg_inf(tmax) || neg_inf(tx) ||
-                                              neg_inf(ty) || neg_inf(tz));
-  if (!ok) {                  // a miss: T = 1, C = 0, D = 0; no gradient
-    if (!BWD) {
-      a.color[3 * i] = 0.0f;
-      a.color[3 * i + 1] = 0.0f;
-      a.color[3 * i + 2] = 0.0f;
-      a.trans[i] = 1.0f;
-      a.depth[i] = nan_depth ? NAN_F32 : 0.0f;
-    }
+  // leaves the depth NaN (JAX's scan; ops/diff.py decides it from the
+  // same predicate, `_nan_depth`; such a ray has no valid segment).  That
+  // is the one output of a dead ray's steps that is not "x + 0"; it is
+  // reproduced here.
+  u.nan_depth = a.max_steps >= 2 && (neg_inf(u.tmax) || neg_inf(u.tx) ||
+                                     neg_inf(u.ty) || neg_inf(u.tz));
+  return u;
+}
+
+// D2: marches ray i and writes (C, T, D).
+__device__ __forceinline__ void march_ray(const DiffArgs& a, int i) {
+  Setup u = march_setup(a, i);
+  if (!u.ok) {                // a miss: T = 1, C = 0, D = 0 (or NaN)
+    a.color[3 * i] = 0.0f;
+    a.color[3 * i + 1] = 0.0f;
+    a.color[3 * i + 2] = 0.0f;
+    a.trans[i] = 1.0f;
+    a.depth[i] = u.nan_depth ? NAN_F32 : 0.0f;
     return;
   }
-
-  float T = 1.0f, Cr = 0.0f, Cg = 0.0f, Cb = 0.0f, D = 0.0f;   // D3: prefix sums
-  float Ctr = 0.0f, Ctg = 0.0f, Ctb = 0.0f, Dt = 0.0f, Tf = 0.0f;
-  float gCr = 0.0f, gCg = 0.0f, gCb = 0.0f, gT = 0.0f, gD = 0.0f;
-  if (BWD) {
-    Ctr = a.color[3 * i];
-    Ctg = a.color[3 * i + 1];
-    Ctb = a.color[3 * i + 2];
-    Tf = a.trans[i];
-    Dt = a.depth[i];
-    gCr = __ldg(&a.g_color[3 * i]);
-    gCg = __ldg(&a.g_color[3 * i + 1]);
-    gCb = __ldg(&a.g_color[3 * i + 2]);
-    gT = __ldg(&a.g_trans[i]);
-    gD = __ldg(&a.g_depth[i]);
-  }
-  float t = tmin;
+  float T = 1.0f, Cr = 0.0f, Cg = 0.0f, Cb = 0.0f, D = 0.0f;
+  float t = u.tmin;
+  int cx = u.cx, cy = u.cy, cz = u.cz;
+  float tx = u.tx, ty = u.ty, tz = u.tz;
   for (int s = 0; s < a.max_steps; ++s) {
     // diff._step: the first axis of least tmax3 (torch.argmin)
     int ax = 0;
     float m = tx;
     if (ty < m) { m = ty; ax = 1; }
     if (tz < m) { m = tz; ax = 2; }
-    const float t_next = fminf(m, tmax);
+    const float t_next = fminf(m, u.tmax);
     const float dl = fmaxf(t_next - t, 0.0f);
     if (dl > 0.0f) {          // a valid segment of the current cell
       const int64_t idx = ((int64_t)cz * a.gy + cy) * a.gx + cx;
@@ -210,54 +219,111 @@ __device__ __forceinline__ void march_ray(const DiffArgs& a, int i) {
       Cg = Cg + w * ag;
       Cb = Cb + w * ab;
       D = D + w * seg_d;
-      if (BWD) {
-        const float te = T * e;
-        const float relu = sg > 0.0f ? 1.0f : 0.0f;   // sigma clamped at 0
-        const float s0 = gCr * te * ar - gCr * (Ctr - Cr);
-        const float s1 = gCg * te * ag - gCg * (Ctg - Cg);
-        const float s2 = gCb * te * ab - gCb * (Ctb - Cb);
-        const float gsig = ((((s0 + s1) + s2) + gD * (te * seg_d - (Dt - D))) - gT * Tf) *
-                           dl * relu;
-        if (gsig != 0.0f) atomicAdd(&a.d_sigma[idx], gsig);
-        const float g0 = gCr * w, g1 = gCg * w, g2 = gCb * w;
-        if (g0 != 0.0f) atomicAdd(&a.d_albedo[3 * idx], g0);
-        if (g1 != 0.0f) atomicAdd(&a.d_albedo[3 * idx + 1], g1);
-        if (g2 != 0.0f) atomicAdd(&a.d_albedo[3 * idx + 2], g2);
-      }
       T = T * (1.0f - alpha);
     }
     // the step; only the stepped axis can leave the grid
     bool oob;
     if (ax == 0) {
-      cx += sx; tx = tx + dlx;
+      cx += u.sx; tx = tx + u.dlx;
       oob = (unsigned)cx >= (unsigned)a.gx;
     } else if (ax == 1) {
-      cy += sy; ty = ty + dly;
+      cy += u.sy; ty = ty + u.dly;
       oob = (unsigned)cy >= (unsigned)a.gy;
     } else {
-      cz += sz; tz = tz + dlz;
+      cz += u.sz; tz = tz + u.dlz;
       oob = (unsigned)cz >= (unsigned)a.gz;
     }
     t = t_next;
-    if (oob || !(t_next < tmax)) break;
+    if (oob || !(t_next < u.tmax)) break;
   }
-  if (!BWD) {
-    a.color[3 * i] = Cr;
-    a.color[3 * i + 1] = Cg;
-    a.color[3 * i + 2] = Cb;
-    a.trans[i] = T;
-    a.depth[i] = nan_depth ? NAN_F32 : D;
+  a.color[3 * i] = Cr;
+  a.color[3 * i + 1] = Cg;
+  a.color[3 * i + 2] = Cb;
+  a.trans[i] = T;
+  a.depth[i] = u.nan_depth ? NAN_F32 : D;
+}
+
+// D3: replays the march of ray i from its saved outputs and adds its
+// gradients, one float4 reduction a valid segment.  A ray that misses
+// the slab has no valid segment and adds nothing.
+__device__ __forceinline__ void replay_ray(const DiffArgs& a, int i) {
+  Setup u = march_setup(a, i);
+  if (!u.ok) return;
+  const float Ctr = a.color[3 * i], Ctg = a.color[3 * i + 1], Ctb = a.color[3 * i + 2];
+  const float Tf = a.trans[i], Dt = a.depth[i];
+  const float gCr = __ldg(&a.g_color[3 * i]), gCg = __ldg(&a.g_color[3 * i + 1]),
+              gCb = __ldg(&a.g_color[3 * i + 2]);
+  const float gT = __ldg(&a.g_trans[i]), gD = __ldg(&a.g_depth[i]);
+  float T = 1.0f, Cr = 0.0f, Cg = 0.0f, Cb = 0.0f, D = 0.0f;   // prefix sums
+  float t = u.tmin;
+  int cx = u.cx, cy = u.cy, cz = u.cz;
+  float tx = u.tx, ty = u.ty, tz = u.tz;
+  int64_t idx = ((int64_t)cz * a.gy + cy) * a.gx + cx;
+  float4 r = __ldg(&a.rec[idx]);
+  for (int s = 0; s < a.max_steps; ++s) {
+    int ax = 0;
+    float m = tx;
+    if (ty < m) { m = ty; ax = 1; }
+    if (tz < m) { m = tz; ax = 2; }
+    const float t_next = fminf(m, u.tmax);
+    const float dl = fmaxf(t_next - t, 0.0f);
+    // the next cell is known: request its record before this segment's
+    // arithmetic (none past the grid's edge, where the march ends)
+    int nx = cx, ny = cy, nz = cz;
+    bool oob;
+    if (ax == 0) {
+      nx += u.sx;
+      oob = (unsigned)nx >= (unsigned)a.gx;
+    } else if (ax == 1) {
+      ny += u.sy;
+      oob = (unsigned)ny >= (unsigned)a.gy;
+    } else {
+      nz += u.sz;
+      oob = (unsigned)nz >= (unsigned)a.gz;
+    }
+    const int64_t nidx = oob ? idx : ((int64_t)nz * a.gy + ny) * a.gx + nx;
+    const float4 rn = oob ? r : __ldg(&a.rec[nidx]);
+    if (dl > 0.0f) {          // a valid segment of the current cell
+      const float sg = r.x, ar = r.y, ag = r.z, ab = r.w;
+      const float e = expf(-fmaxf(sg, 0.0f) * dl);
+      const float alpha = 1.0f - e;
+      const float w = T * alpha;
+      const float seg_d = t + 0.5f * dl;
+      Cr = Cr + w * ar;
+      Cg = Cg + w * ag;
+      Cb = Cb + w * ab;
+      D = D + w * seg_d;
+      const float te = T * e;
+      const float relu = sg > 0.0f ? 1.0f : 0.0f;   // sigma clamped at 0
+      const float s0 = gCr * te * ar - gCr * (Ctr - Cr);
+      const float s1 = gCg * te * ag - gCg * (Ctg - Cg);
+      const float s2 = gCb * te * ab - gCb * (Ctb - Cb);
+      const float gsig = ((((s0 + s1) + s2) + gD * (te * seg_d - (Dt - D))) - gT * Tf) *
+                         dl * relu;
+      const float4 g = make_float4(gsig, gCr * w, gCg * w, gCb * w);
+      if (g.x != 0.0f || g.y != 0.0f || g.z != 0.0f || g.w != 0.0f)
+        atomicAdd(&a.grec[idx], g);   // result unused: one RED.E.ADD.F32x4
+      T = T * (1.0f - alpha);
+    }
+    if (ax == 0) tx = tx + u.dlx;
+    else if (ax == 1) ty = ty + u.dly;
+    else tz = tz + u.dlz;
+    t = t_next;
+    if (oob || !(t_next < u.tmax)) break;
+    cx = nx; cy = ny; cz = nz;
+    idx = nidx;
+    r = rn;
   }
 }
 
 __global__ void __launch_bounds__(THREADS) diff_fwd_kernel(const DiffArgs a) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < a.n) march_ray<false>(a, i);
+  if (i < a.n) march_ray(a, i);
 }
 
-__global__ void __launch_bounds__(THREADS) diff_bwd_kernel(const DiffArgs a) {
+__global__ void __launch_bounds__(BWD_THREADS) diff_bwd_kernel(const DiffArgs a) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < a.n) march_ray<true>(a, i);
+  if (i < a.n) replay_ray(a, i);
 }
 
 }  // namespace
@@ -270,7 +336,7 @@ extern "C" int vt_diff_fwd(const DiffArgs* args, cudaStream_t stream) {
 
 extern "C" int vt_diff_bwd(const DiffArgs* args, cudaStream_t stream) {
   const DiffArgs a = *args;
-  diff_bwd_kernel<<<(a.n + THREADS - 1) / THREADS, THREADS, 0, stream>>>(a);
+  diff_bwd_kernel<<<(a.n + BWD_THREADS - 1) / BWD_THREADS, BWD_THREADS, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 

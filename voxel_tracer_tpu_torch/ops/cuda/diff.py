@@ -21,9 +21,12 @@ targets, `trainer.Trainer.render`, `examples/inverse_render.py` and the
 benchmark's workload 4.  `ops/diff.py` never reaches this module.
 
 `march_fwd` and `march_bwd` are the launchers the autograd Function
-calls; a call allocates its outputs (the gradients zeroed) and launches
-one kernel on the current stream.  `KERNEL_LAUNCHES` counts the launches
-of each kernel.
+calls; a call allocates its outputs and launches one kernel on the
+current stream.  D3 reads one (sigma, albedo r, g, b) float4 record a
+voxel and adds into one zeroed gradient record a voxel: `march_bwd`
+packs the record (`pack_record`) before the launch and unpacks the
+gradient record into d sigma and d albedo after it (`unpack_grads`).
+`KERNEL_LAUNCHES` counts the launches of each kernel.
 """
 
 from __future__ import annotations
@@ -52,7 +55,7 @@ class _Args(ctypes.Structure):
 
     _fields_ = [(name, _P) for name in (
         "sigma", "albedo", "orig", "dirs", "color", "trans", "depth", "g_color",
-        "g_trans", "g_depth", "d_sigma", "d_albedo")] + [
+        "g_trans", "g_depth", "rec", "grec")] + [
         (name, _I) for name in ("n", "gx", "gy", "gz", "max_steps")] + [
         ("vpu", _F), ("rvpu", _F)]
 
@@ -92,12 +95,26 @@ def _check(sigma, albedo, origin_l, dir_l):
     return dev
 
 
+def pack_record(sigma, albedo):
+    """(Z, Y, X) sigma and (Z, Y, X, 3) albedo -> the (Z * Y * X, 4)
+    float32 record D3 reads: (sigma, albedo r, g, b) a voxel, in the
+    grids' (z, y, x) order."""
+    return torch.cat([sigma[..., None], albedo], dim=-1).reshape(-1, 4)
+
+
+def unpack_grads(grec, shape_zyx):
+    """D3's (Z * Y * X, 4) gradient record -> (d sigma (Z, Y, X),
+    d albedo (Z, Y, X, 3)), each contiguous."""
+    g = grec.reshape(*shape_zyx, 4)
+    return g[..., 0].contiguous(), g[..., 1:].contiguous()
+
+
 def _launch(fn, what, sigma, albedo, origin_l, dir_l, vpu, max_steps, color, trans,
-            depth, cts=(None, None, None), grads=(None, None)):
+            depth, cts=(None, None, None), recs=(None, None)):
     vpu = float(vpu)
     gz, gy, gx = sigma.shape
     ptrs = [None if t is None else t.data_ptr()
-            for t in (sigma, albedo, origin_l, dir_l, color, trans, depth, *cts, *grads)]
+            for t in (sigma, albedo, origin_l, dir_l, color, trans, depth, *cts, *recs)]
     args = _Args(*ptrs, origin_l.shape[0], gx, gy, gz, int(max_steps), vpu,
                  float(np.float32(1.0 / vpu)))
     dev = origin_l.device
@@ -144,11 +161,13 @@ def march_bwd(sigma, albedo, origin_l, dir_l, vpu, max_steps, color, trans, dept
         t = t.contiguous()
         _build.check(name, t, torch.float32, shape, dev)
         saved.append(t)
-    d_sigma, d_albedo = torch.zeros_like(sigma), torch.zeros_like(albedo)
-    if n > 0:
-        _launch("vt_diff_bwd", "diff_bwd", sigma, albedo, origin_l, dir_l, vpu, max_steps,
-                *saved[:3], cts=saved[3:], grads=(d_sigma, d_albedo))
-    return d_sigma, d_albedo
+    if n == 0:
+        return torch.zeros_like(sigma), torch.zeros_like(albedo)
+    rec = pack_record(sigma, albedo)
+    grec = torch.zeros_like(rec)
+    _launch("vt_diff_bwd", "diff_bwd", sigma, albedo, origin_l, dir_l, vpu, max_steps,
+            *saved[:3], cts=saved[3:], recs=(rec, grec))
+    return unpack_grads(grec, sigma.shape)
 
 
 class _RenderDensity(torch.autograd.Function):

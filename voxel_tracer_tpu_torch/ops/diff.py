@@ -102,8 +102,21 @@ def _setup(sigma, origin_l, dir_l, vpu):
     return size3_i, _march_setup(origin_l, dir_l, vpu_t, rvpu_t, size3_i)
 
 
+def _nan_depth(st: _March, t_exit, max_steps):
+    """The rays whose depth is NaN: where the set-up leaves t_exit or a
+    first crossing at -inf (an axis-parallel ray outside the slab on its
+    parallel axis), the scan's dead steps meet a segment depth of -inf or
+    NaN, and w = 0 times it is NaN from the second step on.  Decided from
+    the set-up, as D2 decides it, so that a ray's depth does not depend on
+    whether the loop below runs for its batch."""
+    inf = float("inf")
+    bad = (t_exit == -inf) | (st.tmax3 == -inf).any(dim=-1)
+    return bad & (max_steps >= 2)
+
+
 def _render_fwd_only(sigma, albedo, origin_l, dir_l, vpu, max_steps):
     size3_i, (st, stepi, delta, _, t_exit) = _setup(sigma, origin_l, dir_l, vpu)
+    nan_depth = _nan_depth(st, t_exit, max_steps)
     n = origin_l.shape[0]
     sig_flat = sigma.reshape(-1)
     alb_flat = albedo.reshape(-1, 3)
@@ -122,7 +135,7 @@ def _render_fwd_only(sigma, albedo, origin_l, dir_l, vpu, max_steps):
         D = D + w * (st.t + 0.5 * dl)
         T = torch.where(valid, T * (1.0 - alpha), T)
         st = st2
-    return C, T, D
+    return C, T, torch.where(nan_depth, float("nan"), D)
 
 
 def _render_bwd(sigma, albedo, origin_l, dir_l, vpu, max_steps, C_total,
@@ -134,7 +147,9 @@ def _render_bwd(sigma, albedo, origin_l, dir_l, vpu, max_steps, C_total,
       dC/dsigma_i = dl_i * [ T_i e^{-sigma_i dl_i} a_i - S_i ]
     where S_i = sum_{j>i} w_j a_j is the suffix radiance, obtained during
     replay as S_i = C_total - C_prefix_including_i.  Depth is handled
-    alike with the suffix depth; trans contributes -dl_i * T_final.
+    alike with the suffix depth; trans contributes -dl_i * T_final.  The
+    saved depth is NaN only on rays of `_nan_depth`, which have no valid
+    segment: every term that reads it is masked out.
     """
     size3_i, (st, stepi, delta, _, t_exit) = _setup(sigma, origin_l, dir_l, vpu)
     n = origin_l.shape[0]
