@@ -67,13 +67,17 @@ them:
 - the differentiable march D2 / D3 (`csrc/diff.cu`): against the plain
   march (`ops/diff.py`) on workload 4's input (262,144 plane rays, 64^3
   blob, 128 steps), inverse_128's step (131,072 ring rays, 128^3, 192
-  steps), the edge rays (+-0 directions, misses), a z-slab with shifted
-  origins and sigma with zeros and albedo with negative entries, each
-  timed and bounded, D3 beside its glue (the record pack, the zeroed
-  gradient record, the unpack) and beside the parent design (PR 15's
-  D3, built from `tools/torch_diff_trials.py`); then the main path, the
-  wavefront `Trainer.fit` at inverse_128's width, beside the same step on
-  the plain march;
+  steps), the edge rays (+-0 and NaN directions, misses), a z-slab with
+  shifted origins, sigma with zeros and albedo with negative entries,
+  and the wavefront trainer's first batch (inverse_128's rays drawn at
+  random), each timed and bounded: D2 on the float4 record and on the
+  plain grids, D3 beside its glue (the zeroed gradient record, the
+  unpack), the record's pack kernel against torch's copy,
+  D2 and D3 beside the parent design (the first D2 / D3, built from
+  `tools/torch_diff_trials.py`); then the main path, the wavefront
+  `Trainer.fit` at inverse_128's width (one pack a step), its step split
+  by kernel and glue and its peak memory, beside the same step on the
+  plain march;
 - the parallel layer at inverse_128_32views' width on the wavefront
   march (D2 / D3): `Trainer.fit` on one device and under an NCCL world of one
   (`make_train_step`); the worker (`python -m
@@ -133,10 +137,15 @@ D1 launches and device ms a frame, the plain frame's ms, D1's bound
 summed over the frame's calls, and the frame's D1 calls replayed on D1
 and on the parent design: `replay_device_ms`, `parent_replay_device_ms`);
 D2 and D3 (`diff_fwd`, `diff_bwd`) their numbers on inverse_128's step,
-each [march] input under `inputs` (D3 also `whole_device_ms`, its glue
-included, and `parent_device_ms`), `grad_err_rel`, and the `Trainer.fit` step
-on them and on the plain march (`trainer_fit`, `trainer_fit_plain`: ms,
-busy, idle, kernels and host syncs a step); B1 and B2 their `render_vox` launches and
+each [march] input under `inputs` (D2 also `with_pack_device_ms` and
+`grids`, D2 on the plain grids; D3 `whole_device_ms`, its glue included;
+both `parent_device_ms`), `grad_err_rel`, and the `Trainer.fit` step on
+them and on the plain march (`trainer_fit`, `trainer_fit_plain`: ms,
+busy, idle, kernels and host syncs a step; `kernel_ms` by label,
+`glue_ms` and `peak_mem_bytes`); the record's pack (`diff_pack`) its
+numbers on inverse_128's grid and under `grids` on each input's,
+torch's copy as the plain version and torch.cat as the library call;
+B1 and B2 their `render_vox` launches and
 kernel-vs-plain error (`render_vox`); B1 its numbers on the surface path
 (`surface`: launches, colour
 and gradient against the plain versions on the bench grid and a
@@ -296,6 +305,11 @@ def phase_build():
               if "bytes stack frame" in ln]
     require(all(re.match(r"0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
                          ln) for ln in frames), f"B5 uses local memory: {frames}")
+    # D2 (both templates), D3 and the record's pack spill nothing
+    frames = [ln.strip() for ln in logs.get("diff", "").splitlines()
+              if "bytes stack frame" in ln]
+    require(all("0 bytes spill stores, 0 bytes spill loads" in ln for ln in frames),
+            f"D2 / D3 spill: {frames}")
 
 
 @timed_phase
@@ -2633,7 +2647,10 @@ MARCH_PLAIN_STEPS = 2           # steps of the plain march's timed run
 
 def march_edge_scene():
     """tests/test_torch_diff.py's edge scene: a 16^3 random field, a fan of
-    256 rays, axis-parallel rays with +-0 components and two misses (vpu 10)."""
+    256 rays, axis-parallel rays with +-0 components and two misses (vpu
+    10); and rays with one, two and three NaN direction components from
+    inside the grid, from outside toward it and from outside away from it
+    (their depth NaN, their first segment walked, as JAX's scan has it)."""
     rng = np.random.default_rng(0)
     sigma = rng.uniform(0, 8.0, (16, 16, 16)).astype(np.float32)
     albedo = rng.uniform(0, 1, (16, 16, 16, 3)).astype(np.float32)
@@ -2642,20 +2659,28 @@ def march_edge_scene():
     o = np.tile(np.array([-0.9, 0.8, 0.8]), (tgt.shape[0], 1))
     d = tgt - o
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    nan = np.nan
+    nan_o = [[0.8, 0.8, 0.8]] * 6 + [[-0.5, 0.3, 0.7]] * 3 + [[3.0, 3.0, 3.0]] * 3
+    nan_d = [[nan, nan, nan], [nan, 0.6, 0.8], [0.6, nan, 0.8], [0.6, 0.8, nan],
+             [nan, nan, 1.0], [1.0, nan, nan], [nan, 0.6, 0.8], [1.0, nan, nan],
+             [nan, 0.0, 1.0], [nan, 0.6, 0.8], [nan, -1.0, nan], [0.0, nan, 0.0]]
     o = np.concatenate([o, [[0.55, 0.85, -0.5], [-0.5, 0.3, 0.7],
-                            [3.0, 3.0, 3.0], [-1.0, -1.0, -1.0]]]).astype(np.float32)
+                            [3.0, 3.0, 3.0], [-1.0, -1.0, -1.0]], nan_o]).astype(np.float32)
     d = np.concatenate([d, [[-0.0, 0.0, 1.0], [1.0, -0.0, 0.0],
-                            [1.0, 0.0, 0.0], [0.0, 0.0, -1.0]]]).astype(np.float32)
+                            [1.0, 0.0, 0.0], [0.0, 0.0, -1.0]], nan_d]).astype(np.float32)
     return sigma, albedo, o, d
 
 
 def march_inputs(device="cuda", scale=1):
     """[march]'s inputs, (tag, sigma, albedo, origins, dirs, vpu, max_steps)
     on ``device``; ``scale`` divides the ray counts and grid sides (a CPU
-    rehearsal)."""
+    rehearsal).  The sixth is the wavefront Trainer.fit's first batch at
+    inverse_128's width: random single rays of the step's ring views
+    (`trainer.draw_batch`, seed 0), gathered in the sampler's order."""
     from voxel_tracer_tpu_torch.bench.workloads import plane_rays
     from voxel_tracer_tpu_torch.parallel import worker
     from voxel_tracer_tpu_torch.parallel.grid_train import slab_origins
+    from voxel_tracer_tpu_torch.trainer import draw_batch
     from voxel_tracer_tpu_torch.utils.profiling import blob_field, ring_views
 
     def dev(*xs):
@@ -2669,6 +2694,9 @@ def march_inputs(device="cuda", scale=1):
     else:
         s1, a1 = blob_field(128 // scale, 1)
         o1, d1 = ring_views(128 // scale, 32 // scale, 32, 20.0)
+    n1 = o1.shape[0]
+    batch = draw_batch(np.random.RandomState(0), n1, n1, "wavefront")
+    ob, db = dev(o1[batch], d1[batch])
     s1, a1, o1, d1 = dev(s1, a1, o1, d1)
     zs = s1.shape[0] // 2                            # grid rank 1's slab of two
     z0 = np.float32(1) * np.float32(zs / 20.0)
@@ -2679,7 +2707,8 @@ def march_inputs(device="cuda", scale=1):
             ("inverse_128 step", s1, a1, o1, d1, 20.0, 192),
             ("edge rays", *dev(*march_edge_scene()), 10.0, 192),
             ("z-slab", s1[zs:], a1[zs:], slab_origins(o1, z0), d1, 20.0, 192),
-            ("zeros and negatives", s5, a5, o4, d4, 20.0, 128)]
+            ("zeros and negatives", s5, a5, o4, d4, 20.0, 128),
+            ("inverse_128 trainer batch", s1, a1, ob, db, 20.0, 192)]
 
 
 def march_counts(sigma, o, d, vpu, max_steps):
@@ -2717,11 +2746,26 @@ def _march_loss(out, target):
             + 0.01 * torch.mean(torch.nan_to_num(out["depth"], nan=0.0)))
 
 
+def grad_diff(got, ref):
+    """(NaN entries equal, max |d| over the reference's finite entries
+    relative to its largest finite |g|, that max |d|) of gradient pairs."""
+    eq, rel, ab = True, 0.0, 0.0
+    for g, r in zip(got, ref):
+        nan = torch.isnan(r)
+        eq = eq and torch.equal(torch.isnan(g), nan)
+        dd = _maxabs(torch.where(nan, 0.0, g - r))
+        ab = max(ab, dd)
+        rel = max(rel, dd / max(_maxabs(torch.where(nan, 0.0, r)), 1e-30))
+    return eq, rel, ab
+
+
 def march_pair(tag, sigma, albedo, o, d, vpu, max_steps, smi=None):
     """D2 and D3 against the plain march on one input: the fields, the
-    gradients of `_march_loss`, and (given ``smi``, the card's name and
+    gradients of `_march_loss` (NaN on the same entries, within
+    MARCH_GRAD_RTOL elsewhere), and (given ``smi``, the card's name and
     power limit) each kernel's event and device ms, the plain halves' ms
-    and the bound."""
+    and the bound, D2 on the plain grids, the record's pack against
+    torch's, and D2 and D3 in turns with the parent design."""
     from voxel_tracer_tpu_torch.ops import diff
     from voxel_tracer_tpu_torch.ops.cuda import diff as diff_kernel
     n = o.shape[0]
@@ -2738,15 +2782,16 @@ def march_pair(tag, sigma, albedo, o, d, vpu, max_steps, smi=None):
     nan_k = [int(torch.isnan(x).sum()) for x in ok]
     nan_eq = all(torch.equal(torch.isnan(k), torch.isnan(p)) for k, p in zip(ok, op))
     err = max(_maxabs(torch.where(torch.isnan(p), 0.0, k - p)) for k, p in zip(ok, op))
-    g_rel = max(_maxabs(x - y) / max(_maxabs(y), 1e-30) for x, y in ((sk, sp), (ak, ap)))
-    g_abs = max(_maxabs(x - y) for x, y in ((sk, sp), (ak, ap)))
+    g_eq, g_rel, g_abs = grad_diff((sk, ak), (sp, ap))
+    g_nan = int(torch.isnan(sk).sum()) + int(torch.isnan(ak).sum())
     zero_ok = not bool(sk[sigma <= 0].any())
     log(f"[march] {tag}: {n} rays, grid {tuple(sigma.shape)}, {max_steps} steps; D2 vs plain "
         f"color / trans / depth max |d| {err:.3g} (atol {MARCH_ATOL}), NaN depth on "
         f"{nan_k[2]} rays, equal masks {nan_eq}; D3 vs plain grad rel err {g_rel:.3g} "
-        f"(rtol {MARCH_GRAD_RTOL}), max |d| {g_abs:.3g}, d sigma 0 where sigma <= 0: {zero_ok}")
+        f"(rtol {MARCH_GRAD_RTOL}), max |d| {g_abs:.3g}, {g_nan} NaN entries, equal masks "
+        f"{g_eq}, d sigma 0 where sigma <= 0: {zero_ok}")
     require(nan_eq and err <= MARCH_ATOL, f"{tag}: D2 differs from the plain march: {err}")
-    require(g_rel <= MARCH_GRAD_RTOL, f"{tag}: D3 differs from the plain march: {g_rel}")
+    require(g_eq and g_rel <= MARCH_GRAD_RTOL, f"{tag}: D3 differs from the plain march: {g_rel}")
     require(zero_ok, f"{tag}: D3 gives d sigma where sigma <= 0")
     require(bool((op[1] < 1).any()), f"{tag}: no ray met density")
     out = dict(rays=n, err_fwd=err, err_bwd=g_abs, grad_err_rel=g_rel)
@@ -2755,12 +2800,13 @@ def march_pair(tag, sigma, albedo, o, d, vpu, max_steps, smi=None):
     steps, valid = march_counts(sigma, o, d, vpu, max_steps)
     c, t, dp = (x.contiguous() for x in ok)
     s, a = sigma.contiguous(), albedo.contiguous()
+    rec = diff_kernel.pack_record(s, a)
 
-    def fwd_k():
-        return diff_kernel.march_fwd(s, a, o, d, vpu, max_steps)
+    def fwd_k():            # D2 on the record (packed once a step, beside it)
+        return diff_kernel.march_fwd(s, a, o, d, vpu, max_steps, rec)
 
-    def bwd_k():
-        return diff_kernel.march_bwd(s, a, o, d, vpu, max_steps, c, t, dp, *cts)
+    def bwd_k():            # D3 on the record the forward saved, and its glue
+        return diff_kernel.march_bwd(s, a, o, d, vpu, max_steps, c, t, dp, *cts, rec=rec)
 
     for mode, kfn, pfn, name in (
             ("fwd", fwd_k, lambda: diff._render_fwd_only(s, a, o, d, vpu, max_steps),
@@ -2777,34 +2823,93 @@ def march_pair(tag, sigma, albedo, o, d, vpu, max_steps, smi=None):
             f"({steps / n:.1f} a ray), {valid} valid segments; {smi}")
         out[mode] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bnd[0],
                          bound_by=bnd[1], steps=steps, valid_segments=valid)
-    out["bwd"].update(d3_parent_turns(tag, (s, a, o, d, vpu, max_steps, c, t, dp, *cts),
-                                      (sp, ap), smi))
+
+    def fwd_grids():        # D2 on the plain grids (forward-only calls, few rays)
+        return diff_kernel.march_fwd(s, a, o, d, vpu, max_steps)
+
+    chk = diff_kernel.march_fwd(s, a, o, d, vpu, max_steps)
+    g_err = max(_maxabs(torch.where(torch.isnan(p), 0.0, k - p)) for k, p in zip(chk, ok))
+    require(all(torch.equal(torch.isnan(k), torch.isnan(p)) for k, p in zip(chk, ok))
+            and g_err <= MARCH_ATOL, f"{tag}: D2 on the plain grids differs: {g_err}")
+    out["fwd"]["grids"] = dict(ms=cuda_ms(lambda i: fwd_grids(), 10), max_abs_err=g_err,
+                               device_ms=kernel_device_ms(fwd_grids, 3, "diff_fwd_kernel"))
+    log(f"[march] {tag}: D2 on the plain grids {out['fwd']['grids']['ms']:.4f} ms a call "
+        f"(device {_opt_ms(out['fwd']['grids']['device_ms'])}), max |d| {g_err:.3g}; {smi}")
+    out["pack"] = record_pack(tag, s, a, smi)
+    out["fwd"].update(march_parent_turns(tag, "fwd", (s, a, o, d, vpu, max_steps), smi))
+    out["bwd"].update(march_parent_turns(tag, "bwd", (s, a, o, d, vpu, max_steps), smi))
     return out
 
 
-def d3_parent_turns(tag, args, ref, smi):
-    """D3's device ms and the whole backward's (D3 and its glue: the record
-    pack, the zeroed gradient record, the unpack), and the same of the
-    parent design (PR 15's D3: two zeroed gradient grids, D3), in turns
-    (D3, parent, parent, D3) on march_bwd's arguments ``args``; the
-    parent's gradients held to the plain backward's ``ref`` first."""
-    from voxel_tracer_tpu_torch.ops.cuda import _build
+def record_pack(tag, sigma, albedo, smi):
+    """The record's pack kernel against torch's copy (`pack_record_plain`)
+    on one grid: bit for bit, then timed (events; the kernel's device
+    span), beside torch's copy and its library call torch.cat, and
+    bounded (16 bytes a voxel read, 16 written)."""
+    from voxel_tracer_tpu_torch.ops.cuda import diff as diff_kernel
+    m = sigma.numel()
+    rec = diff_kernel.pack_record(sigma, albedo)
+    require(torch.equal(rec, diff_kernel.pack_record_plain(sigma, albedo)),
+            f"{tag}: the pack kernel differs from torch's")
+
+    def kfn():
+        return diff_kernel.pack_record(sigma, albedo)
+
+    ms = cuda_ms(lambda i: kfn(), 10)
+    dev = kernel_device_ms(kfn, 3, "diff_pack_kernel")
+    bnd = bound(32 * m, 0)
+    out = dict(ms=ms, device_ms=dev,
+               plain_ms=cuda_ms(lambda i: diff_kernel.pack_record_plain(sigma, albedo), 10),
+               library_ms=cuda_ms(lambda i: torch.cat([sigma[..., None], albedo], dim=-1), 10),
+               bound_ms=bnd[0], bound_by=bnd[1], max_abs_err=0.0)
+    log(f"[march] {tag}: pack kernel {ms:.4f} ms (device {_opt_ms(dev)}), equal to torch's "
+        f"bit for bit; torch {out['plain_ms']:.4f} ms, torch.cat {out['library_ms']:.4f} ms; "
+        f"bound {bnd[0]:.4f} ms ({m} voxels); {smi}")
+    return out
+
+
+def march_parent_turns(tag, mode, args, smi):
+    """D2's (mode "fwd": the kernel, and with the pack) or D3's (mode
+    "bwd": the kernel, and with its glue: zeroed record and unpack) device
+    ms beside the parent design's (the first D2 and D3: the plain grids; D3
+    into two zeroed gradient grids), in turns (new, parent, parent, new)
+    on march_fwd's arguments ``args``, the parent held to the plain march
+    first.  The parent clamps a NaN delta: where the input has
+    NaN-direction rays, both run on the others."""
+    from voxel_tracer_tpu_torch.ops import diff
+    from voxel_tracer_tpu_torch.ops.cuda import diff as diff_kernel
     mod, lib = parent_design("torch_diff_trials")
-    runs = {"d3": mod.call("committed", _build.load("diff"), args),
-            "parent": mod.call("parent", lib, args)}
-    got = runs["parent"]()
-    rel = max(_maxabs(g - r) / max(_maxabs(r), 1e-30) for g, r in zip(got, ref))
-    require(rel <= MARCH_GRAD_RTOL, f"{tag}: the parent D3 differs from the plain march: {rel}")
-    turns = {"d3": [], "parent": []}
-    for name in ("d3", "parent", "parent", "d3"):
-        turns[name].append(mod.bwd_device_ms(runs[name], 3))
+    (s, a, o, d, vpu, steps), dropped = mod.finite_rays(args)
+    fargs = (s, a, o, d, vpu, steps)
+    ref = diff._render_fwd_only(*fargs)
+    if mode == "fwd":
+        runs = {"new": lambda: diff_kernel.march_fwd(*fargs, diff_kernel.pack_record(s, a)),
+                "parent": lambda: mod.parent_fwd(lib, *fargs)}
+        mod.check_fwd(f"parent {tag}", runs["parent"](), ref)
+        name = "diff_fwd_kernel"
+    else:
+        cts = mod.cotangents(ref)
+        bargs = (*fargs, *ref, *cts)
+        rec = diff_kernel.pack_record(s, a)
+        runs = {"new": lambda: diff_kernel.march_bwd(*bargs, rec=rec),
+                "parent": lambda: mod.parent_bwd(lib, *bargs)}
+        mod.check_bwd(f"parent {tag}", runs["parent"](), diff._render_bwd(*bargs), s)
+        name = "diff_bwd_kernel"
+    turns = {"new": [], "parent": []}
+    for who in ("new", "parent", "parent", "new"):
+        turns[who].append(mod.device_ms(runs[who], 3, name))
     mean = {k: [None if any(x[j] is None for x in v) else sum(x[j] for x in v) / len(v)
                 for j in (0, 1)] for k, v in turns.items()}
-    log(f"[march] {tag}: D3 in turns with the parent design (PR 15), device ms a call: D3 "
-        f"{_opt_ms(mean['d3'][0])}, with its glue {_opt_ms(mean['d3'][1])}; parent "
+    kern = "D2" if mode == "fwd" else "D3"
+    glue = "its pack" if mode == "fwd" else "its glue"
+    log(f"[march] {tag}: {kern} in turns with the parent design (the first D2 / D3)"
+        f"{', NaN-direction rays left out' if dropped else ''}, device ms a call: {kern} "
+        f"{_opt_ms(mean['new'][0])}, with {glue} {_opt_ms(mean['new'][1])}; parent "
         f"{_opt_ms(mean['parent'][0])}, with its zeroing {_opt_ms(mean['parent'][1])}; {smi}")
-    return dict(turns_device_ms=mean["d3"][0], whole_device_ms=mean["d3"][1],
-                parent_device_ms=mean["parent"][0], parent_whole_device_ms=mean["parent"][1])
+    whole = "with_pack_device_ms" if mode == "fwd" else "whole_device_ms"
+    return {"turns_device_ms": mean["new"][0], whole: mean["new"][1],
+            "parent_device_ms": mean["parent"][0],
+            "parent_whole_device_ms": mean["parent"][1]}
 
 
 def _step_numbers(tag, run, counts, smi):
@@ -2824,16 +2929,48 @@ def _step_numbers(tag, run, counts, smi):
                 host_syncs=syncs)
 
 
+def _step_split(run, ms_per_step, smi):
+    """One step's device time by kernel label (D2: the pack and D2; D3)
+    and glue, from a device window (up to 3, until both labels show), and
+    the step's peak device memory (torch's allocator, one more step)."""
+    from voxel_tracer_tpu_torch.bench.measure import split_events
+    split = None
+    for _ in range(3):      # a window late in a long process may miss events
+        _wall, events = device_window(lambda: run(1))
+        split = split_events(events, 1, ms_per_step) if events else None
+        if split is not None and {"D2", "D3"} <= set(split["kernel_ms"]):
+            break
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    run(1)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[march] Trainer.fit step split: "
+        + ("not measured" if split is None else
+           f"{', '.join(f'{k} {v:.4f} ms' for k, v in split['kernel_ms'].items())}, glue "
+           f"{split['glue_ms']:.4f} ms "
+           f"({', '.join(g['name'][:40] for g in split['top_glue'][:3])})")
+        + f"; peak memory {peak / 2**20:.1f} MiB ({base / 2**20:.1f} MiB held before); {smi}")
+    return dict(kernel_ms=None if split is None else split["kernel_ms"],
+                glue_ms=None if split is None else split["glue_ms"],
+                peak_mem_bytes=peak, mem_before_bytes=base)
+
+
 @timed_phase
 def phase_march():
-    """[march] D2 and D3 against the plain march (`ops/diff.py`) on five
+    """[march] D2 and D3 against the plain march (`ops/diff.py`) on six
     inputs: workload 4's (262,144 plane rays, 64^3 blob, 128 steps),
     inverse_128's step (131,072 ring rays, 128^3, 192 steps), the edge
-    rays (+-0 directions, misses), a z-slab with shifted origins (as
-    `grid_train.render_grid_sharded` passes it) and sigma with zeros and
-    albedo with negative entries; each timed and bounded.  Then the main
-    path, `Trainer.fit` (wavefront) at inverse_128's width, with the launch
-    counts at 0 just before and read just after; its step timed beside the
+    rays (+-0 and NaN directions, misses), a z-slab with shifted origins
+    (as `grid_train.render_grid_sharded` passes it), sigma with zeros and
+    albedo with negative entries, and the wavefront trainer's first batch
+    (inverse_128's rays drawn at random); each timed and bounded, beside
+    the parent design, with the record's pack kernel against torch's
+    copy.  Then the main path, `Trainer.fit` (wavefront) at
+    inverse_128's width, with the launch counts at 0 just before and read
+    just after (one pack a step: D3 reads the record the forward saved);
+    its step timed, split by kernel and glue, its peak memory, beside the
     same step through the plain march (a local loss here)."""
     from voxel_tracer_tpu_torch.ops import diff
     from voxel_tracer_tpu_torch.ops.cuda import diff as diff_kernel
@@ -2868,9 +3005,10 @@ def phase_march():
         f"steps: losses {[f'{v:.6g}' for v in losses]}; launches {launches}")
     require(all(np.isfinite(losses)) and losses[-1] < losses[0],
             f"the wavefront trainer's loss did not fall: {losses}")
-    require(launches == {"diff_fwd": 3, "diff_bwd": 3},
-            f"Trainer.fit did not run each step on D2 and D3: {launches}")
+    require(launches == {"diff_fwd": 3, "diff_bwd": 3, "diff_pack": 3},
+            f"Trainer.fit did not run each step on D2 and D3 with one pack: {launches}")
     kernel = _step_numbers("Trainer.fit on D2 / D3", fit, MARCH_FIT_COUNTS, smi)
+    kernel.update(_step_split(fit, kernel["ms_per_step"], smi))
 
     # the same step through the plain march: Trainer.fit's sampler and
     # batch copy, make_train_step's loss and Adam, on a mesh of one
@@ -3360,17 +3498,25 @@ def main():
     inv = march["inputs"]["inverse_128 step"]
     for name, mode, line in (("diff_fwd", "fwd", 87), ("diff_bwd", "bwd", 140)):
         t = inv[mode]
+        whole = "with_pack_device_ms" if mode == "fwd" else "whole_device_ms"
         kernels.append(dict(
             name=name, route="cuda", source="voxel_tracer_tpu_torch/csrc/diff.cu",
             replaces=f"voxel_tracer_tpu/ops/diff.py:{line}", launches=march["launches"][name],
             max_abs_err=march[f"err_{mode}"], ms=t["ms"], device_ms=t["device_ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-            library_ms=None, **({"whole_device_ms": t["whole_device_ms"],
-                                 "parent_device_ms": t["parent_device_ms"]}
-                                if mode == "bwd" else {}),
+            library_ms=None, **{whole: t[whole], "parent_device_ms": t["parent_device_ms"]},
             grad_err_rel=max(r["grad_err_rel"] for r in march["inputs"].values()),
             inputs={k.replace(" ", "_"): v[mode] for k, v in march["inputs"].items()},
             trainer_fit=march["fit"], trainer_fit_plain=march["fit_plain"]))
+    # the record's pack feeds D2 and D3 (the forward packs once a step)
+    t = inv["pack"]
+    kernels.append(dict(
+        name="diff_pack", route="cuda", source="voxel_tracer_tpu_torch/csrc/diff.cu",
+        replaces="voxel_tracer_tpu/ops/diff.py:87", launches=march["launches"]["diff_pack"],
+        max_abs_err=t["max_abs_err"], ms=t["ms"], device_ms=t["device_ms"],
+        plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+        library_ms=t["library_ms"],
+        grids={k.replace(" ", "_"): v["pack"] for k, v in march["inputs"].items()}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

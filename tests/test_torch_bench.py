@@ -322,16 +322,18 @@ def test_every_kernel_maps_to_one_label():
     """Each kernel of csrc/*.cu has one label: B1-B7 the Pallas kernels'
     counterparts, D1 the DDA's passes (dda_kernel<true>, dda_kernel<false>:
     the brick bitmap from shared or from global memory; dda_exhaust_kernel),
-    D2 and D3 the differentiable march's forward and backward."""
+    D2 and D3 the differentiable march's forward and backward, D2 with its
+    two templates (diff_fwd_kernel<true>, <false>: on the float4 record, on
+    the plain grids) and the record's pack (diff_pack_kernel)."""
     names = _global_kernels()
-    assert len(names) == 12, names
+    assert len(names) == 14, names
     labels = []
     for name in names:
         hits = [lab for key, lab in measure.KERNEL_LABELS.items()
                 if measure.label_of(f"void {name}(int)") == lab and key == name]
         assert len(hits) == 1, (name, hits)
         labels += hits
-    assert sorted(labels) == [f"B{i}" for i in range(1, 8)] + ["D1", "D1", "D1", "D2", "D3"]
+    assert sorted(labels) == [f"B{i}" for i in range(1, 8)] + ["D1"] * 3 + ["D2"] * 3 + ["D3"]
 
 
 def test_dda_passes_sum_under_one_label():

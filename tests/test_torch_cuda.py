@@ -24,8 +24,12 @@ shadows key on the hit cell), NaN on the same rays (NaN directions); also
 with the bitmap read from global memory, on uint8 grids and ids outside
 [0, 255], and across in-place edits of its tables.
 The differentiable march (D2, D3) against the plain march (`ops/diff.py`):
-color, trans and depth within 1e-6 and NaN on the same rays; gradients
-within 1e-4 x max|g| (atomics), d sigma 0 where sigma is 0.
+color, trans and depth within 1e-6 and NaN on the same rays (NaN
+directions among them); D2 on both templates (the float4 record, the
+plain grids); gradients NaN on the same entries and within 1e-4 x max|g|
+elsewhere (atomics), d sigma 0 where sigma is 0; the record's pack
+kernel equal to torch's copy bit for bit; one pack a training step, the
+backward on the record the forward saved.
 """
 
 import numpy as np
@@ -928,17 +932,26 @@ def test_dda_kernel_empty_list_and_bad_input(cuda):
 # D2 / D3: the differentiable march (ops/cuda/diff.py) against the plain
 # march (ops/diff.py): color, trans and depth within 1e-6 (the same float32
 # program; expf may differ in the last bit) and NaN on the same rays (the
-# depth of a ray whose set-up leaves t_exit or a first crossing at -inf);
-# d sigma and d albedo within 1e-4 x max|g| (atomics and index_add_ sum in
-# run-dependent orders), d sigma exactly 0 where sigma is 0
+# depth of a ray whose set-up leaves t_exit or a first crossing at -inf,
+# or whose direction has a NaN component); d sigma and d albedo NaN on the
+# same entries and within 1e-4 x max|g| elsewhere (atomics and index_add_
+# sum in run-dependent orders), d sigma exactly 0 where sigma is 0
 # ---------------------------------------------------------------------------
+
+_NAN = float("nan")
+# rays with one, two and three NaN direction components: from inside the
+# grid, from outside toward it, from outside away from it
+_NAN_O = [[0.8, 0.8, 0.8]] * 6 + [[-0.5, 0.3, 0.7]] * 3 + [[3.0, 3.0, 3.0]] * 3
+_NAN_D = [[_NAN, _NAN, _NAN], [_NAN, 0.6, 0.8], [0.6, _NAN, 0.8], [0.6, 0.8, _NAN],
+          [_NAN, _NAN, 1.0], [1.0, _NAN, _NAN], [_NAN, 0.6, 0.8], [1.0, _NAN, _NAN],
+          [_NAN, 0.0, 1.0], [_NAN, 0.6, 0.8], [_NAN, -1.0, _NAN], [0.0, _NAN, 0.0]]
 
 def _march_scene(kind, dev):
     """(sigma, albedo, origins, dirs, vpu) on ``dev``: tests/test_torch_diff.py's
     edge scene (16^3, a fan of 256 rays, axis-parallel rays with +-0
     components and two misses) or a 32^3 random field (a third of sigma 0,
     albedo with negative entries) with 4096 rays from all sides."""
-    if kind == "edge":
+    if kind in ("edge", "nan_dirs"):
         rng = np.random.default_rng(0)
         sigma = rng.uniform(0, 8.0, (16, 16, 16)).astype(np.float32)
         albedo = rng.uniform(0, 1, (16, 16, 16, 3)).astype(np.float32)
@@ -951,6 +964,9 @@ def _march_scene(kind, dev):
                                 [3.0, 3.0, 3.0], [-1.0, -1.0, -1.0]]]).astype(np.float32)
         d = np.concatenate([d, [[-0.0, 0.0, 1.0], [1.0, -0.0, 0.0],
                                 [1.0, 0.0, 0.0], [0.0, 0.0, -1.0]]]).astype(np.float32)
+        if kind == "nan_dirs":
+            o = np.concatenate([o, _NAN_O]).astype(np.float32)
+            d = np.concatenate([d, _NAN_D]).astype(np.float32)
         o, d, vpu = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev), 10.0
     else:
         rng = np.random.RandomState(8)
@@ -962,7 +978,22 @@ def _march_scene(kind, dev):
     return sigma, albedo, o, d, vpu
 
 
-@pytest.mark.parametrize("scene", ["edge", "random"])
+def _assert_march_grads_match(got, ref):
+    for x, y in zip(got, ref):
+        nan = torch.isnan(y)
+        assert torch.equal(torch.isnan(x), nan)
+        scale = float(torch.where(nan, 0.0, y).abs().max())
+        assert float(torch.where(nan, 0.0, x - y).abs().max()) <= 1e-4 * scale
+
+
+def _assert_march_fields_match(got, ref):
+    for k, p in zip(got, ref):
+        assert torch.equal(torch.isnan(k), torch.isnan(p))
+        fin = ~torch.isnan(p)
+        assert float((k[fin] - p[fin]).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("scene", ["edge", "random", "nan_dirs"])
 def test_march_kernels_match_plain(cuda, scene):
     from voxel_tracer_tpu_torch.ops import diff
     from voxel_tracer_tpu_torch.ops.cuda import diff as diff_kernel
@@ -982,15 +1013,106 @@ def test_march_kernels_match_plain(cuda, scene):
         launched = {k: v - before[k] for k, v in diff_kernel.KERNEL_LAUNCHES.items()}
         res.append(([x.detach() for x in outs], s.grad, a.grad, launched))
     (ok, sk, ak, lk), (op, sp, ap, lp) = res
-    assert lk == {"diff_fwd": 1, "diff_bwd": 1} and lp == {"diff_fwd": 0, "diff_bwd": 0}
-    for k, p in zip(ok, op):
-        assert torch.equal(torch.isnan(k), torch.isnan(p))
-        fin = ~torch.isnan(p)
-        assert float((k[fin] - p[fin]).abs().max()) <= 1e-6
+    assert lk == {"diff_fwd": 1, "diff_bwd": 1, "diff_pack": 1}
+    assert lp == {"diff_fwd": 0, "diff_bwd": 0, "diff_pack": 0}
+    _assert_march_fields_match(ok, op)
     assert bool((op[1] < 1).any())
-    for x, y in ((sk, sp), (ak, ap)):
-        assert float((x - y).abs().max()) <= 1e-4 * float(y.abs().max())
+    _assert_march_grads_match((sk, ak), (sp, ap))
+    if scene == "nan_dirs":
+        assert bool(torch.isnan(op[2]).sum() >= len(_NAN_D)) and bool(torch.isnan(sp).any())
     assert not bool(sk[sigma == 0].any()) and not bool(sp[sigma == 0].any())
+
+
+@pytest.mark.parametrize("scene", ["edge", "random", "nan_dirs"])
+def test_march_forward_templates_match_plain(cuda, scene):
+    """D2 on the float4 record (`diff_fwd_kernel<true>`) and on the plain
+    grids (`<false>`) against the plain forward."""
+    from voxel_tracer_tpu_torch.ops import diff
+    from voxel_tracer_tpu_torch.ops.cuda import diff as diff_kernel
+    sigma, albedo, o, d, vpu = _march_scene(scene, cuda)
+    ref = diff._render_fwd_only(sigma, albedo, o, d, vpu, 192)
+    rec = diff_kernel.pack_record(sigma, albedo)
+    for r in (rec, None):
+        _assert_march_fields_match(diff_kernel.march_fwd(sigma, albedo, o, d, vpu, 192, r), ref)
+
+
+@pytest.mark.parametrize("shape", [(16, 16, 16), (7, 12, 20), (1, 5, 9), (33, 1, 70)])
+def test_record_pack_matches_torch(cuda, shape):
+    """diff_pack_kernel against pack_record_plain (torch.cat), bit for bit
+    (NaN, -0 and inf included), on a grid and on a z-slab view of it."""
+    from voxel_tracer_tpu_torch.ops.cuda import diff as diff_kernel
+    g = torch.Generator(cuda).manual_seed(1)
+    sigma = torch.randn(shape, generator=g, device=cuda)
+    albedo = torch.randn((*shape, 3), generator=g, device=cuda)
+    sigma.view(-1)[:3] = torch.tensor([_NAN, -0.0, float("inf")], device=cuda)
+    before = diff_kernel.KERNEL_LAUNCHES["diff_pack"]
+    for s, a in ((sigma, albedo), (sigma[shape[0] // 2:], albedo[shape[0] // 2:])):
+        rec = diff_kernel.pack_record(s, a)
+        ref = diff_kernel.pack_record_plain(s, a)
+        assert rec.shape == ref.shape and torch.equal(rec.view(torch.int32),
+                                                      ref.view(torch.int32))
+    assert diff_kernel.KERNEL_LAUNCHES["diff_pack"] == before + 2
+
+
+def test_one_pack_a_training_step(cuda):
+    """The wavefront step packs the record once, in the forward, and the
+    backward's D3 reads that record: per step one launch of each of D2,
+    D3 and the pack, one call of pack_record, and the gradients equal the
+    plain march's."""
+    from voxel_tracer_tpu_torch.ops import diff
+    from voxel_tracer_tpu_torch.ops.cuda import diff as diff_kernel
+    from voxel_tracer_tpu_torch.parallel import mesh as pmesh
+    from voxel_tracer_tpu_torch.parallel.sharding import make_train_step
+    sigma, albedo, o, d, vpu = _march_scene("random", cuda)
+    target = torch.rand((o.shape[0], 3), generator=torch.Generator(cuda).manual_seed(2),
+                        device=cuda)
+    step = make_train_step(pmesh.make_ray_mesh(device=cuda), 1e-2, vpu, 96)
+    params = {"sigma": sigma.clone().requires_grad_(), "albedo": albedo.clone().requires_grad_()}
+    packs = []
+    real_pack = diff_kernel.pack_record
+
+    def pack(s, a):
+        packs.append((s.data_ptr(), a.data_ptr()))
+        return real_pack(s, a)
+
+    diff_kernel.pack_record = pack
+    try:
+        diff_kernel.reset_launch_counts()
+        for _ in range(2):
+            step(params, None, o, d, target)
+        torch.cuda.synchronize()
+    finally:
+        diff_kernel.pack_record = real_pack
+    assert diff_kernel.KERNEL_LAUNCHES == {"diff_fwd": 2, "diff_bwd": 2, "diff_pack": 2}
+    assert len(packs) == 2
+    # the record the backward read: D3 on it equals the plain backward
+    s, a = sigma.clone().requires_grad_(), albedo.clone().requires_grad_()
+    out = diff_kernel.render_density(s, a, o, d, vpu, 96)
+    ((out["color"] - target) ** 2).mean().backward()
+    s2, a2 = sigma.clone().requires_grad_(), albedo.clone().requires_grad_()
+    ref = diff.render_density(s2, a2, o, d, vpu, 96)
+    ((ref["color"] - target) ** 2).mean().backward()
+    _assert_march_grads_match((s.grad, a.grad), (s2.grad, a2.grad))
+
+
+def test_forward_only_call_picks_its_template(cuda):
+    """A call without a gradient packs only with rays enough for the grid
+    (`uses_record`), and gives the same fields either way."""
+    from voxel_tracer_tpu_torch.ops.cuda import diff as diff_kernel
+    sigma, albedo, o, d, vpu = _march_scene("random", cuda)
+    few = max(1, int(diff_kernel.RECORD_MIN_RAYS_PER_VOXEL * sigma.numel()) - 1)
+    k = -(-sigma.numel() // o.shape[0])
+    many = o.repeat(k, 1), d.repeat(k, 1)
+    assert not diff_kernel.uses_record(few, sigma.numel(), False)
+    assert diff_kernel.uses_record(many[0].shape[0], sigma.numel(), False)
+    assert diff_kernel.uses_record(1, sigma.numel(), True)
+    for rays, packs in (((o[:few], d[:few]), 0), (many, 1)):
+        before = diff_kernel.KERNEL_LAUNCHES["diff_pack"]
+        with torch.no_grad():
+            out = diff_kernel.render_density(sigma, albedo, *rays, vpu, 192)
+        assert diff_kernel.KERNEL_LAUNCHES["diff_pack"] - before == packs
+        ref = diff_kernel.march_fwd(sigma, albedo, *rays, vpu, 192)
+        _assert_march_fields_match([out[k] for k in ("color", "trans", "depth")], ref)
 
 
 def test_march_kernels_empty_list_and_bad_input(cuda):

@@ -25,6 +25,14 @@ tests/test_torch_cuda.py's (card only).  Here:
   parallel axis): its dead steps make its depth NaN in JAX's scan; the
   plain loop and D2 decide that NaN from the set-up, so it is NaN alone
   and in any batch;
+- rays with one, two or three NaN direction components (their delta
+  stays NaN, as JAX's jnp.minimum keeps it): each walks its first
+  segment, its depth is NaN from the second step on and the d sigma of
+  that segment NaN where sigma > 0; the plain march equals JAX's
+  `render_density` and its VJP on them alone, beside one entering ray
+  and in a batch (NaN on the same entries, the rest within the
+  tolerances below), and their depth is NaN alone and in any batch
+  whether or not the loop runs past its early stop;
 - the wrapper on CPU tensors equals the plain version bit for bit, and
   both equal JAX's `render_density` at tests/test_torch_diff.py's
   tolerances (outputs 1e-5, gradients 1e-4 x max|g|), forward and
@@ -32,6 +40,7 @@ tests/test_torch_cuda.py's (card only).  Here:
 - the wrapper's input checks (dtype, devices, shapes).
 """
 
+import functools
 import inspect
 
 import numpy as np
@@ -103,11 +112,12 @@ def _render(sigma, albedo, o, d, cts):
 # ---------------------------------------------------------------------------
 
 def _nan_depth_rays(sigma, o, d):
-    """The rays whose set-up leaves t_exit or a first crossing at -inf."""
+    """The rays whose set-up leaves t_exit or a first crossing at -inf, or
+    whose direction has a NaN component."""
     _, (st, _, _, _, t_exit) = diff._setup(torch.from_numpy(sigma), torch.from_numpy(o),
                                            torch.from_numpy(d), VPU)
     inf = float("inf")
-    return ((t_exit == -inf) | (st.tmax3 == -inf).any(-1)).numpy()
+    return ((t_exit == -inf) | (st.tmax3 == -inf).any(-1)).numpy() | np.isnan(d).any(-1)
 
 
 def _parts(n, mode):
@@ -209,6 +219,117 @@ def test_nan_depth_ray_alone_and_in_a_batch():
 
 
 # ---------------------------------------------------------------------------
+# NaN directions
+# ---------------------------------------------------------------------------
+
+_NAN = np.nan
+_NAN_DIRS = [[_NAN, _NAN, _NAN], [_NAN, 0.6, 0.8], [0.6, _NAN, 0.8], [0.6, 0.8, _NAN],
+             [_NAN, _NAN, 1.0], [1.0, _NAN, _NAN], [_NAN, -1.0, _NAN], [_NAN, 0.0, 1.0],
+             [0.0, _NAN, -0.0]]
+# inside the grid, outside toward it, outside away from it, on a slab face
+_NAN_ORIGINS = [[0.8, 0.8, 0.8], [-0.5, 0.3, 0.7], [3.0, 3.0, 3.0], [0.0, 0.5, 0.5]]
+
+
+def _nan_rays():
+    o = np.repeat(np.array(_NAN_ORIGINS, np.float32), len(_NAN_DIRS), axis=0)
+    d = np.tile(np.array(_NAN_DIRS, np.float32), (len(_NAN_ORIGINS), 1))
+    return o, d
+
+
+@functools.partial(jax.jit, static_argnums=(5,))
+def _jax_vjp(sigma, albedo, o, d, cts, steps):
+    out, vjp = jax.vjp(lambda s, a: jdiff.render_density(s, a, o, d, VPU, steps), sigma, albedo)
+    return out, vjp(cts)
+
+
+def _jax_render(sigma, albedo, o, d, cts, steps=STEPS):
+    """JAX's render_density and its VJP under jit (one compile a shape)."""
+    out, grads = _jax_vjp(*(jnp.asarray(x) for x in (sigma, albedo, o, d)),
+                          {k: jnp.asarray(c.numpy())
+                           for k, c in zip(("color", "trans", "depth"), cts)}, steps)
+    return (tuple(np.asarray(out[k]) for k in ("color", "trans", "depth")),
+            tuple(np.asarray(g) for g in grads))
+
+
+def _assert_like_jax(got, ref):
+    """Outputs NaN where JAX's are and within 1e-5 elsewhere; gradients NaN
+    where JAX's are and within 1e-4 x max|g| elsewhere."""
+    (outs, grads), (routs, rgrads) = got, ref
+    for x, y in zip(outs, routs):
+        nan = np.isnan(y)
+        np.testing.assert_array_equal(np.isnan(x), nan)
+        np.testing.assert_allclose(x[~nan], y[~nan], atol=1e-5, rtol=0)
+    for x, y in zip(grads, rgrads):
+        nan = np.isnan(y)
+        np.testing.assert_array_equal(np.isnan(x), nan)
+        if (~nan).any():
+            assert np.abs(x[~nan] - y[~nan]).max() <= 1e-4 * max(np.abs(y[~nan]).max(), 1e-30)
+
+
+@pytest.mark.parametrize("mode", ["alone", "with_partner", "batch"])
+def test_nan_direction_rays_match_jax(mode):
+    """The plain march on NaN-direction rays against JAX's render_density
+    and its VJP: each ray alone, each beside one ray that enters the grid,
+    and all of them in a batch with the random scene's rays."""
+    sigma, albedo, ro, rd = _random_scene(24)
+    o, d = _nan_rays()
+    n = o.shape[0]
+    if mode == "batch":
+        parts = [(np.concatenate([o, ro]), np.concatenate([d, rd]))]
+    elif mode == "with_partner":
+        parts = [(np.concatenate([o[i:i + 1], ro[:1]]), np.concatenate([d[i:i + 1], rd[:1]]))
+                 for i in range(n)]
+    else:
+        parts = [(o[i:i + 1], d[i:i + 1]) for i in range(n)]
+    nan_grads = 0
+    for po, pd in parts:
+        cts = _cotangents(po.shape[0])
+        got = _render(sigma, albedo, po, pd, cts)
+        ref = _jax_render(sigma, albedo, po, pd, cts)
+        _assert_like_jax(got, ref)
+        assert np.isnan(got[0][2][np.isnan(pd).any(-1)]).all()
+        nan_grads += int(np.isnan(got[1][0]).sum())
+    assert nan_grads > 0                    # some first segments met sigma > 0
+
+
+@pytest.mark.parametrize("steps", [1, 2, 9, STEPS])
+def test_nan_direction_depth_alone_and_in_a_batch(steps):
+    """The NaN depth of a NaN-direction ray is decided from its set-up:
+    alone (the loop may never start: it misses, or stops at its first
+    check) and inside a batch whose other rays enter the grid (the loop
+    runs on past the early stop), its color, trans and depth are JAX's;
+    with one step only the depth stays finite, as in the scan; the
+    batch's other rays keep what they have without it."""
+    sigma, albedo, ro, rd = _random_scene(32)
+    o, d = _nan_rays()
+    n = o.shape[0]
+
+    def fwd(po, pd):
+        out = diff.render_density(*(torch.from_numpy(x) for x in (sigma, albedo, po, pd)),
+                                  VPU, steps)
+        return tuple(out[k].numpy() for k in ("color", "trans", "depth"))
+
+    rest = fwd(ro, rd)
+    batch = fwd(np.concatenate([o, ro]), np.concatenate([d, rd]))
+    assert (batch[1][n:] < 1).any()                 # the batch's loop runs
+    for x, y in zip(batch, rest):
+        np.testing.assert_array_equal(x[n:], y)
+    # JAX's scan steps every ray max_steps times, whatever its batch
+    ref = _jax_render(sigma, albedo, o, d, tuple(torch.zeros(n, *s) for s in ((3,), (), ())),
+                      steps)[0]
+    for i in range(n):
+        alone = fwd(o[i:i + 1], d[i:i + 1])
+        for x, b, y in zip(alone, batch, ref):
+            y = y[i:i + 1]
+            nan = np.isnan(y)
+            np.testing.assert_array_equal(np.isnan(x), nan)
+            np.testing.assert_array_equal(np.isnan(b[i:i + 1]), nan)
+            np.testing.assert_allclose(x[~nan], y[~nan], atol=1e-5, rtol=0)
+            np.testing.assert_allclose(b[i:i + 1][~nan], y[~nan], atol=1e-5, rtol=0)
+        assert np.isnan(alone[2][0]) == (steps >= 2)
+
+
+# ---------------------------------------------------------------------------
 # The wrapper on CPU tensors vs the plain version and JAX
 # ---------------------------------------------------------------------------
 
@@ -258,7 +379,7 @@ def test_launchers_run_the_plain_halves_on_the_cpu():
     (c, t, dp), (gs, ga) = _render(sigma, albedo, o, d, cts)
     for got, ref in zip((*fwd, *bwd), (c, t, dp, gs, ga)):
         np.testing.assert_array_equal(got.numpy(), ref)
-    assert diff_kernel.KERNEL_LAUNCHES == {"diff_fwd": 0, "diff_bwd": 0}
+    assert diff_kernel.KERNEL_LAUNCHES == {"diff_fwd": 0, "diff_bwd": 0, "diff_pack": 0}
 
 
 def test_wrapper_rejects_bad_input():

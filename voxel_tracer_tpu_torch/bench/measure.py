@@ -60,7 +60,9 @@ SYNC_WARNING = "called a synchronizing CUDA operation"   # PyTorch's sync debug 
 # the hand-written kernels by the symbol the profiler prints, and the
 # TPU kernel (B) or XLA loop (D) each replaces (PERF.md's tables); D1's
 # passes share its label (pass 1 a template on where the block reads the
-# brick bitmap from)
+# brick bitmap from); D2's templates (on the float4 record, on the plain
+# grids) share D2's, and so does the record's pack (the forward launches
+# it; D3 reads the same record)
 KERNEL_LABELS = {
     "mega_camera_kernel": "B1",
     "mega_rays_kernel": "B2",
@@ -72,7 +74,9 @@ KERNEL_LABELS = {
     "dda_kernel<true>": "D1",
     "dda_kernel<false>": "D1",
     "dda_exhaust_kernel": "D1",
-    "diff_fwd_kernel": "D2",
+    "diff_fwd_kernel<true>": "D2",
+    "diff_fwd_kernel<false>": "D2",
+    "diff_pack_kernel": "D2",
     "diff_bwd_kernel": "D3",
 }
 # a kernel's symbol as the profiler prints it, e.g.

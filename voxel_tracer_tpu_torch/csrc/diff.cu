@@ -1,5 +1,6 @@
 // Differentiable voxel-level emission/absorption march for Hopper
-// (sm_90a): forward (D2) and its replay backward (D3).
+// (sm_90a): forward (D2) and its replay backward (D3), and the copy that
+// packs the grids into their float4 records.
 //
 // Replaces the XLA program of voxel_tracer_tpu/ops/diff.py:render_density
 // (a jax.custom_vjp over two lax.scans: the forward _render_fwd_only,
@@ -13,9 +14,11 @@
 //
 // - the set-up of diff._march_setup: the slab test of dda.slab_test
 //   against [0, size / vpu] (NaN guard on 0 * inf, tmax - 1e-4 >= tmin),
-//   the entry cell clamped into the grid and the first crossing t of each
-//   axis (NaN -> BIG, clamped at BIG; axis-parallel rays' delta clamped
-//   at BIG before the scale by 1 / vpu);
+//   the entry cell clamped into the grid (a NaN entry to cell 0) and the
+//   first crossing t of each axis (NaN -> BIG, clamped at BIG); delta is
+//   |1 / dir| clamped at BIG (axis-parallel rays) before the scale by
+//   1 / vpu, and stays NaN for a NaN direction component, as the plain
+//   march's torch.clamp and JAX's jnp.minimum keep it;
 // - diff._step: the segment [t, min(min tmax3, t_exit)], valid while the
 //   ray is alive and its length is > 0; the step on the first axis of
 //   least tmax3 (torch.argmin: x before y before z on a tie); the ray dies
@@ -28,20 +31,31 @@
 // is alive, but a dead ray's steps are not valid and add w = 0 times
 // finite values, which leaves T, C, the prefix sums and the gradients
 // unchanged (tests/test_torch_diff_route.py renders every ray alone and
-// in batches to show it).  The exception is the depth of a ray whose
-// set-up puts t_exit or a first crossing at -inf (an axis-parallel ray
-// outside the slab on its parallel axis): its dead steps make the depth
-// NaN in JAX; the plain loop and the kernel write NaN for it from the
-// set-up when max_steps >= 2, whatever the batch.  A ray that misses
-// the slab never steps: T = 1, C = 0, D = 0 (or that NaN), and reads no
-// voxel.  A step that is not valid adds nothing (D3 may have requested
-// its voxel's record ahead).
+// in batches to show it).  The exceptions are decided from the set-up,
+// as the plain march decides them (ops/diff._nan_depth), whatever the
+// batch:
+//
+// - a ray whose set-up puts t_exit or a first crossing at -inf (an
+//   axis-parallel ray outside the slab on its parallel axis): its dead
+//   steps make the depth NaN;
+// - a ray with a NaN direction component: the scan's first step adds
+//   onehot * delta to every axis, 0 * NaN on the axes not stepped, so the
+//   second step's t is NaN; that step is not valid, the ray dies there,
+//   and its depth is NaN.  Such a ray walks one step (its first segment,
+//   if it enters) and no more.
+//
+// Both write NaN depth when max_steps >= 2.  A ray that misses the slab
+// never steps: T = 1, C = 0, D = 0 (or that NaN), and reads no voxel.  A
+// step that is not valid adds nothing (its voxel's record may have been
+// requested ahead).
 //
 // D2 accumulates (T, C, D) as ops/diff.py:_render_fwd_only does, in its
 // order.  D3 replays the march from the saved (C, T, D) and the
 // cotangents (gC, gT, gD) as ops/diff.py:_render_bwd does: the prefix
-// sums Cpre / Dpre, the suffixes C - Cpre and D - Dpre, relu = sigma > 0,
-// d sigma and d albedo of the step.
+// sums Cpre / Dpre, the suffixes C - Cpre and D - Dpre, d sigma of the
+// step where sigma > 0 and 0 elsewhere (a select, as XLA simplifies JAX's
+// multiply by relu: a NaN saved depth gives NaN only where sigma > 0),
+// d albedo of the step.
 //
 // Rounding: compiled with --fmad=false and no fast math; fmaf exactly
 // where the plain version calls dda._fma (the entry point and the first
@@ -54,19 +68,25 @@
 // Bound: a dependent chain per step (the crossing compares, the current
 // voxel's loads, expf, ~25 FP32 operations forward and ~50 backward) and
 // the divergence of trip counts inside a warp; no step of one ray can
-// start before the last one's t.  D2 reads the plain (Z, Y, X) and
-// (Z, Y, X, 3) grids through the read-only path (16 bytes a voxel: 4 MB
-// at 64^3, 33.5 MB at 128^3, mostly L2-resident).  D3 also pays the
-// reductions of every valid segment into the gradient grids, in L2.  Its
-// design against both: it reads one interleaved (sigma, r, g, b) float4
-// record a voxel (ops/cuda/diff.pack_record, packed by the wrapper before
-// the launch) with one 16-byte load, requests the next voxel's record
-// before the current segment's arithmetic, and adds a segment's four
-// gradients with one float4 atomicAdd (sm_90: one RED.E.ADD.F32x4) into
-// a zeroed (Z * Y * X, 4) gradient record, skipped where all four are 0;
-// the wrapper then unpacks it into the (Z, Y, X) and (Z, Y, X, 3)
-// gradients (ops/cuda/diff.unpack_grads).  One reduction a segment in
-// place of up to four scalar ones into two arrays.
+// start before the last one's t.  The design against both, in D2 and D3
+// alike: one interleaved (sigma, r, g, b) float4 record a voxel (16 bytes
+// at 16-byte alignment: one sector, where the plain grids take a load of
+// sigma and three strided loads of albedo, two or three sectors for a
+// ray whose neighbours walk elsewhere), read with one 16-byte load, and
+// the next voxel's record requested before the current segment's
+// arithmetic.  The record is packed once a training step
+// (diff_pack_kernel, launched by ops/cuda/diff.py's forward, which saves
+// it for the backward; torch.cat reaches a third of the memory rate, this
+// copy most of it); D2 keeps a template on the plain (Z, Y, X) and
+// (Z, Y, X, 3) grids (diff_fwd_kernel<false>, the next voxel's four
+// values requested ahead alike) for forward-only calls with few rays on
+// a large grid, where the pack costs more than it saves.  D3 also pays
+// the reductions of every valid segment into the gradients, in L2: it
+// adds a segment's four gradients with one float4 atomicAdd (sm_90: one
+// RED.E.ADD.F32x4) into a zeroed (Z * Y * X, 4) gradient record, skipped
+// where all four are 0, which the wrapper splits into the (Z, Y, X) and
+// (Z, Y, X, 3) gradients (torch's two strided copies, at the memory rate
+// as they are).
 //
 // Launchers are extern "C", run on the caller's stream, allocate nothing,
 // and return cudaGetLastError().
@@ -87,7 +107,8 @@ struct DiffArgs {
   const float* g_color;       // D3: cotangents (N, 3), (N,), (N,)
   const float* g_trans;
   const float* g_depth;
-  const float4* rec;          // D3: (Z * Y * X,) (sigma, albedo r, g, b) records
+  const float4* rec;          // D2 (null: read the grids) and D3: (Z * Y * X,)
+                              // (sigma, albedo r, g, b) records
   float4* grec;               // D3: zeroed (Z * Y * X,) (d sigma, d albedo r, g, b)
   int n;
   int gx, gy, gz;
@@ -101,6 +122,7 @@ namespace {
 constexpr float BIG_F32 = 1e30f;   // miss depth and clamp (math3d.py BIG_F32)
 constexpr int THREADS = 128;       // D2's blocks
 constexpr int BWD_THREADS = 128;   // D3's blocks
+constexpr int COPY_THREADS = 256;  // the pack's blocks
 
 __device__ __forceinline__ bool neg_inf(float v) { return isinf(v) && v < 0.0f; }
 #define NAN_F32 __int_as_float(0x7fc00000)
@@ -135,10 +157,12 @@ __device__ __forceinline__ void axis_setup(float o, float d, float tmin, float v
 
 // The set-up of diff._march_setup for one ray: the slab test, the entry
 // cell and the first crossing t of each axis, the steps and deltas; ok:
-// whether the ray enters; nan_depth: whether its depth is NaN (below).
+// whether the ray enters; nan_depth: whether its depth is NaN and steps:
+// the steps it may take (below).
 struct Setup {
   float tmin, tmax;
   bool ok, nan_depth;
+  int steps;
   int sx, sy, sz;
   float dlx, dly, dlz;
   int cx, cy, cz;
@@ -164,26 +188,41 @@ __device__ __forceinline__ Setup march_setup(const DiffArgs& a, int i) {
   u.sy = py ? 1 : -1;
   u.sz = pz ? 1 : -1;
   const float rx = 1.0f / dx, ry = 1.0f / dy, rz = 1.0f / dz;
-  // clamp inf (axis-parallel rays) to BIG so 0 * delta stays 0, not NaN
-  u.dlx = fminf(fabsf(rx), BIG_F32) * rvpu;
-  u.dly = fminf(fabsf(ry), BIG_F32) * rvpu;
-  u.dlz = fminf(fabsf(rz), BIG_F32) * rvpu;
+  // clamp inf (axis-parallel rays) to BIG so 0 * delta stays 0, not NaN;
+  // a NaN stays NaN (fminf would drop it)
+  u.dlx = isnan(rx) ? rx : fminf(fabsf(rx), BIG_F32) * rvpu;
+  u.dly = isnan(ry) ? ry : fminf(fabsf(ry), BIG_F32) * rvpu;
+  u.dlz = isnan(rz) ? rz : fminf(fabsf(rz), BIG_F32) * rvpu;
   axis_setup(ox, dx, u.tmin, vpu, rvpu, a.gx - 1, px, rx, u.cx, u.tx);
   axis_setup(oy, dy, u.tmin, vpu, rvpu, a.gy - 1, py, ry, u.cy, u.ty);
   axis_setup(oz, dz, u.tmin, vpu, rvpu, a.gz - 1, pz, rz, u.cz, u.tz);
   // The scan steps a dead ray on.  Where the set-up leaves t_exit or a
   // first crossing at -inf, its first step ends at t = -inf, its next
   // step's segment depth t + dl / 2 is -inf or NaN, and w = 0 times it
-  // leaves the depth NaN (JAX's scan; ops/diff.py decides it from the
-  // same predicate, `_nan_depth`; such a ray has no valid segment).  That
-  // is the one output of a dead ray's steps that is not "x + 0"; it is
-  // reproduced here.
-  u.nan_depth = a.max_steps >= 2 && (neg_inf(u.tmax) || neg_inf(u.tx) ||
+  // leaves the depth NaN; such a ray has no valid segment.  Where a delta
+  // is NaN, the first step leaves that axis's crossing NaN (onehot *
+  // delta), the second step's t is NaN: not valid, the ray dies, and w = 0
+  // times its depth is NaN.  Those are the outputs of dead steps that are
+  // not "x + 0" (JAX's scan; ops/diff.py decides them from the same
+  // predicate, `_nan_depth`); they are reproduced here.
+  const bool nan_dir = isnan(u.dlx) || isnan(u.dly) || isnan(u.dlz);
+  u.nan_depth = a.max_steps >= 2 && (nan_dir || neg_inf(u.tmax) || neg_inf(u.tx) ||
                                      neg_inf(u.ty) || neg_inf(u.tz));
+  u.steps = nan_dir ? min(a.max_steps, 1) : a.max_steps;
   return u;
 }
 
+// One voxel's (sigma, albedo r, g, b): D2<true> and D3 read its record,
+// D2<false> the plain grids.
+template <bool REC>
+__device__ __forceinline__ float4 voxel(const DiffArgs& a, int64_t idx) {
+  if (REC) return __ldg(&a.rec[idx]);
+  return make_float4(__ldg(&a.sigma[idx]), __ldg(&a.albedo[3 * idx]),
+                     __ldg(&a.albedo[3 * idx + 1]), __ldg(&a.albedo[3 * idx + 2]));
+}
+
 // D2: marches ray i and writes (C, T, D).
+template <bool REC>
 __device__ __forceinline__ void march_ray(const DiffArgs& a, int i) {
   Setup u = march_setup(a, i);
   if (!u.ok) {                // a miss: T = 1, C = 0, D = 0 (or NaN)
@@ -198,7 +237,9 @@ __device__ __forceinline__ void march_ray(const DiffArgs& a, int i) {
   float t = u.tmin;
   int cx = u.cx, cy = u.cy, cz = u.cz;
   float tx = u.tx, ty = u.ty, tz = u.tz;
-  for (int s = 0; s < a.max_steps; ++s) {
+  int64_t idx = ((int64_t)cz * a.gy + cy) * a.gx + cx;
+  float4 v = voxel<REC>(a, idx);
+  for (int s = 0; s < u.steps; ++s) {
     // diff._step: the first axis of least tmax3 (torch.argmin)
     int ax = 0;
     float m = tx;
@@ -206,11 +247,25 @@ __device__ __forceinline__ void march_ray(const DiffArgs& a, int i) {
     if (tz < m) { m = tz; ax = 2; }
     const float t_next = fminf(m, u.tmax);
     const float dl = fmaxf(t_next - t, 0.0f);
+    // the next cell is known: request its voxel before this segment's
+    // arithmetic (none past the grid's edge, where the march ends); only
+    // the stepped axis can leave the grid
+    int nx = cx, ny = cy, nz = cz;
+    bool oob;
+    if (ax == 0) {
+      nx += u.sx;
+      oob = (unsigned)nx >= (unsigned)a.gx;
+    } else if (ax == 1) {
+      ny += u.sy;
+      oob = (unsigned)ny >= (unsigned)a.gy;
+    } else {
+      nz += u.sz;
+      oob = (unsigned)nz >= (unsigned)a.gz;
+    }
+    const int64_t nidx = oob ? idx : ((int64_t)nz * a.gy + ny) * a.gx + nx;
+    const float4 vn = oob ? v : voxel<REC>(a, nidx);
     if (dl > 0.0f) {          // a valid segment of the current cell
-      const int64_t idx = ((int64_t)cz * a.gy + cy) * a.gx + cx;
-      const float sg = __ldg(&a.sigma[idx]);
-      const float ar = __ldg(&a.albedo[3 * idx]), ag = __ldg(&a.albedo[3 * idx + 1]),
-                  ab = __ldg(&a.albedo[3 * idx + 2]);
+      const float sg = v.x, ar = v.y, ag = v.z, ab = v.w;
       const float e = expf(-fmaxf(sg, 0.0f) * dl);
       const float alpha = 1.0f - e;
       const float w = T * alpha;
@@ -221,20 +276,14 @@ __device__ __forceinline__ void march_ray(const DiffArgs& a, int i) {
       D = D + w * seg_d;
       T = T * (1.0f - alpha);
     }
-    // the step; only the stepped axis can leave the grid
-    bool oob;
-    if (ax == 0) {
-      cx += u.sx; tx = tx + u.dlx;
-      oob = (unsigned)cx >= (unsigned)a.gx;
-    } else if (ax == 1) {
-      cy += u.sy; ty = ty + u.dly;
-      oob = (unsigned)cy >= (unsigned)a.gy;
-    } else {
-      cz += u.sz; tz = tz + u.dlz;
-      oob = (unsigned)cz >= (unsigned)a.gz;
-    }
+    if (ax == 0) tx = tx + u.dlx;
+    else if (ax == 1) ty = ty + u.dly;
+    else tz = tz + u.dlz;
     t = t_next;
     if (oob || !(t_next < u.tmax)) break;
+    cx = nx; cy = ny; cz = nz;
+    idx = nidx;
+    v = vn;
   }
   a.color[3 * i] = Cr;
   a.color[3 * i + 1] = Cg;
@@ -260,7 +309,7 @@ __device__ __forceinline__ void replay_ray(const DiffArgs& a, int i) {
   float tx = u.tx, ty = u.ty, tz = u.tz;
   int64_t idx = ((int64_t)cz * a.gy + cy) * a.gx + cx;
   float4 r = __ldg(&a.rec[idx]);
-  for (int s = 0; s < a.max_steps; ++s) {
+  for (int s = 0; s < u.steps; ++s) {
     int ax = 0;
     float m = tx;
     if (ty < m) { m = ty; ax = 1; }
@@ -294,12 +343,12 @@ __device__ __forceinline__ void replay_ray(const DiffArgs& a, int i) {
       Cb = Cb + w * ab;
       D = D + w * seg_d;
       const float te = T * e;
-      const float relu = sg > 0.0f ? 1.0f : 0.0f;   // sigma clamped at 0
       const float s0 = gCr * te * ar - gCr * (Ctr - Cr);
       const float s1 = gCg * te * ag - gCg * (Ctg - Cg);
       const float s2 = gCb * te * ab - gCb * (Ctb - Cb);
-      const float gsig = ((((s0 + s1) + s2) + gD * (te * seg_d - (Dt - D))) - gT * Tf) *
-                         dl * relu;
+      // sigma clamped at 0: 0 where sigma <= 0, even where the rest is NaN
+      const float gsig = sg > 0.0f ?
+          ((((s0 + s1) + s2) + gD * (te * seg_d - (Dt - D))) - gT * Tf) * dl : 0.0f;
       const float4 g = make_float4(gsig, gCr * w, gCg * w, gCb * w);
       if (g.x != 0.0f || g.y != 0.0f || g.z != 0.0f || g.w != 0.0f)
         atomicAdd(&a.grec[idx], g);   // result unused: one RED.E.ADD.F32x4
@@ -316,9 +365,10 @@ __device__ __forceinline__ void replay_ray(const DiffArgs& a, int i) {
   }
 }
 
+template <bool REC>
 __global__ void __launch_bounds__(THREADS) diff_fwd_kernel(const DiffArgs a) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < a.n) march_ray(a, i);
+  if (i < a.n) march_ray<REC>(a, i);
 }
 
 __global__ void __launch_bounds__(BWD_THREADS) diff_bwd_kernel(const DiffArgs a) {
@@ -326,17 +376,42 @@ __global__ void __launch_bounds__(BWD_THREADS) diff_bwd_kernel(const DiffArgs a)
   if (i < a.n) replay_ray(a, i);
 }
 
+// The record of voxel v: (sigma[v], albedo[3v..3v+2]); one 16-byte store
+// a thread, the loads of a warp covering 128 contiguous bytes of sigma
+// and 384 of albedo.
+__global__ void __launch_bounds__(COPY_THREADS) diff_pack_kernel(
+    const float* __restrict__ sigma, const float* __restrict__ albedo,
+    float4* __restrict__ rec, int64_t m) {
+  const int64_t v = (int64_t)blockIdx.x * COPY_THREADS + threadIdx.x;
+  if (v < m)
+    rec[v] = make_float4(__ldg(&sigma[v]), __ldg(&albedo[3 * v]), __ldg(&albedo[3 * v + 1]),
+                         __ldg(&albedo[3 * v + 2]));
+}
+
 }  // namespace
 
+// D2: on the records when args->rec is set, else on the plain grids.
 extern "C" int vt_diff_fwd(const DiffArgs* args, cudaStream_t stream) {
   const DiffArgs a = *args;
-  diff_fwd_kernel<<<(a.n + THREADS - 1) / THREADS, THREADS, 0, stream>>>(a);
+  const int blocks = (a.n + THREADS - 1) / THREADS;
+  if (a.rec != nullptr)
+    diff_fwd_kernel<true><<<blocks, THREADS, 0, stream>>>(a);
+  else
+    diff_fwd_kernel<false><<<blocks, THREADS, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 extern "C" int vt_diff_bwd(const DiffArgs* args, cudaStream_t stream) {
   const DiffArgs a = *args;
   diff_bwd_kernel<<<(a.n + BWD_THREADS - 1) / BWD_THREADS, BWD_THREADS, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// m voxels: (Z, Y, X) sigma and (Z, Y, X, 3) albedo into (m,) records.
+extern "C" int vt_diff_pack(const float* sigma, const float* albedo, float4* rec, int64_t m,
+                            cudaStream_t stream) {
+  const int64_t blocks = (m + COPY_THREADS - 1) / COPY_THREADS;
+  diff_pack_kernel<<<(unsigned)blocks, COPY_THREADS, 0, stream>>>(sigma, albedo, rec, m);
   return (int)cudaGetLastError();
 }
 

@@ -62,7 +62,9 @@ def _march_setup(origin_l, dir_l, vpu, rvpu, size3_i):
     # clamp inf (axis-parallel rays) to BIG so 0 * delta stays 0, not NaN
     delta = torch.clamp(torch.abs(rdir), max=BIG_F32)
     entry = _fma(dir_l, tmin[..., None], origin_l) * vpu
-    cell = torch.minimum(torch.clamp(torch.floor(entry), min=0.0),
+    # fmax: a NaN entry (a NaN direction component) takes cell 0, as XLA's
+    # float-to-int conversion and D2's fmaxf give it
+    cell = torch.minimum(torch.fmax(torch.floor(entry), torch.zeros_like(entry)),
                          (size3_i - 1).to(torch.float32)).to(torch.int64)
     tmax3 = _fma(((cell.to(torch.float32) - entry)
                   + torch.clamp(stepf, min=0.0)) * rdir, rvpu, tmin[..., None])
@@ -102,21 +104,30 @@ def _setup(sigma, origin_l, dir_l, vpu):
     return size3_i, _march_setup(origin_l, dir_l, vpu_t, rvpu_t, size3_i)
 
 
-def _nan_depth(st: _March, t_exit, max_steps):
-    """The rays whose depth is NaN: where the set-up leaves t_exit or a
-    first crossing at -inf (an axis-parallel ray outside the slab on its
-    parallel axis), the scan's dead steps meet a segment depth of -inf or
-    NaN, and w = 0 times it is NaN from the second step on.  Decided from
-    the set-up, as D2 decides it, so that a ray's depth does not depend on
-    whether the loop below runs for its batch."""
+def _nan_depth(st: _March, delta, t_exit, max_steps):
+    """The rays whose depth is NaN, from the second step on:
+
+    - where the set-up leaves t_exit or a first crossing at -inf (an
+      axis-parallel ray outside the slab on its parallel axis), the scan's
+      dead steps meet a segment depth of -inf or NaN, and w = 0 times it is
+      NaN;
+    - where a direction component is NaN, so is its delta: the first step
+      adds onehot * delta, 0 * NaN on an axis not stepped, and leaves that
+      axis's crossing NaN; the second step's t is NaN, its segment is not
+      valid (the ray dies there, whether it entered or not) and w = 0 times
+      its NaN depth is NaN.
+
+    Decided from the set-up, as D2 decides it, so that a ray's depth does
+    not depend on whether the loop below runs for its batch."""
     inf = float("inf")
-    bad = (t_exit == -inf) | (st.tmax3 == -inf).any(dim=-1)
+    bad = ((t_exit == -inf) | (st.tmax3 == -inf).any(dim=-1)
+           | torch.isnan(delta).any(dim=-1))
     return bad & (max_steps >= 2)
 
 
 def _render_fwd_only(sigma, albedo, origin_l, dir_l, vpu, max_steps):
     size3_i, (st, stepi, delta, _, t_exit) = _setup(sigma, origin_l, dir_l, vpu)
-    nan_depth = _nan_depth(st, t_exit, max_steps)
+    nan_depth = _nan_depth(st, delta, t_exit, max_steps)
     n = origin_l.shape[0]
     sig_flat = sigma.reshape(-1)
     alb_flat = albedo.reshape(-1, 3)
@@ -148,8 +159,10 @@ def _render_bwd(sigma, albedo, origin_l, dir_l, vpu, max_steps, C_total,
     where S_i = sum_{j>i} w_j a_j is the suffix radiance, obtained during
     replay as S_i = C_total - C_prefix_including_i.  Depth is handled
     alike with the suffix depth; trans contributes -dl_i * T_final.  The
-    saved depth is NaN only on rays of `_nan_depth`, which have no valid
-    segment: every term that reads it is masked out.
+    saved depth is NaN only on rays of `_nan_depth`.  Those of the -inf
+    set-up have no valid segment, and every term that reads it is masked
+    out; a ray with a NaN direction component has one valid segment, the
+    first, whose d sigma is NaN where sigma > 0, as in JAX.
     """
     size3_i, (st, stepi, delta, _, t_exit) = _setup(sigma, origin_l, dir_l, vpu)
     n = origin_l.shape[0]
@@ -174,11 +187,12 @@ def _render_bwd(sigma, albedo, origin_l, dir_l, vpu, max_steps, C_total,
         Dpre = Dpre + w * seg_d
         suffix_c = C_total - Cpre
         suffix_d = D_total - Dpre
-        relu = (sg > 0.0).to(torch.float32)     # sigma clamped at 0 in fwd
+        # sigma clamped at 0 in fwd: a select, as XLA simplifies JAX's
+        # multiply by (sg > 0), so a NaN suffix depth there gives 0
         gsig = (torch.sum(gC * (T * e)[:, None] * al - gC * suffix_c, dim=-1)
                 + gD * ((T * e) * seg_d - suffix_d)
-                - gT * T_final) * dl * relu
-        gsig = torch.where(valid, gsig, 0.0)
+                - gT * T_final) * dl
+        gsig = torch.where(valid & (sg > 0.0), gsig, 0.0)
         galb = torch.where(valid[:, None], gC * w[:, None], 0.0)
         d_sigma.index_add_(0, idx, gsig)
         d_albedo.index_add_(0, idx, galb)
