@@ -16,6 +16,12 @@ kernel for CUDA tensors and runs the plain loop of `ops/dda.py` for CPU
 tensors.  `PLAIN` is this module's interface with ``dda_fn`` set to the
 plain loop on any device: the plain wavefront frame is
 `Renderer(config, isect=composite.PLAIN)`.
+
+Spans (`utils/profiling.annotate`, off by default): each traversal is an
+`intersect` span whose ``kind`` is primary, shadow, interior or scan (an
+``ignore``d medium: glass scans and the continuation); the prepass is a
+`topk` span, and each candidate slot of `intersect_group` a `candidate`
+span that keeps the rows still in the race.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import torch
 from voxel_tracer_tpu_torch.ops import dda
 from voxel_tracer_tpu_torch.ops.cuda import dda as dda_kernel
 from voxel_tracer_tpu_torch.ops.math3d import BIG_F32, rigid_inverse_point, rigid_inverse_vec
+from voxel_tracer_tpu_torch.utils import profiling
 
 
 class HitResult(NamedTuple):
@@ -97,6 +104,11 @@ def _slab_prepass_topk(group, origins, dirs, k: int):
     """Per-ray K nearest candidate objects by slab entry t: a loop over the
     group's objects, each bubble-inserted into the sorted K-list (a strict
     `<`, so ties keep the earlier object)."""
+    with profiling.annotate("topk", objects=group.grid.shape[0], k=k):
+        return _topk(group, origins, dirs, k)
+
+
+def _topk(group, origins, dirs, k):
     n, dev = origins.shape[0], origins.device
     gz, gy, gx = group.grid.shape[-3:]
     vsize = torch.tensor([gx, gy, gz], dtype=torch.float32, device=dev)
@@ -142,23 +154,24 @@ def intersect_group(group, origins, dirs, max_candidates: int = 4,
         live = cand_t[:, slot] < BIG_F32
         # early out: a candidate can't beat an existing nearer hit
         live = live & (cand_t[:, slot] < best.t)
-        rot, pos, pivot, vpu = _gather_objects(group, oid)
-        o_l, d_l = _to_local(rot, pos, pivot, origins, dirs)
-        res = (dda_fn or dda_kernel.intersect_volume_local)(
-            group.grid, group.brick_occ, o_l, d_l, vpu, oid=oid,
-            max_steps=max_steps, **dda_kw)
-        hit = live & (res["t"] < BIG_F32)
-        normal = dda.normal_from_axis(res["axis"], res["step_sign"], rot)
-        albedo = pal_flat[oid * 256 + torch.clamp(res["mat"], 0, 255).long()]
-        cand = HitResult(
-            t=torch.where(hit, res["t"], BIG_F32),
-            mat=torch.where(hit, res["mat"], 0),
-            normal=torch.where(hit[:, None], normal, 0.0),
-            albedo=torch.where(hit[:, None], albedo, 0.0),
-            steps=torch.where(live, res["steps"], 0),
-            obj=torch.where(hit, obj_base + oid.to(torch.int32), -1).to(torch.int32),
-        )
-        best = best.nearer(cand)
+        with profiling.annotate("candidate", slot=slot, keep=live):
+            rot, pos, pivot, vpu = _gather_objects(group, oid)
+            o_l, d_l = _to_local(rot, pos, pivot, origins, dirs)
+            res = (dda_fn or dda_kernel.intersect_volume_local)(
+                group.grid, group.brick_occ, o_l, d_l, vpu, oid=oid,
+                max_steps=max_steps, **dda_kw)
+            hit = live & (res["t"] < BIG_F32)
+            normal = dda.normal_from_axis(res["axis"], res["step_sign"], rot)
+            albedo = pal_flat[oid * 256 + torch.clamp(res["mat"], 0, 255).long()]
+            cand = HitResult(
+                t=torch.where(hit, res["t"], BIG_F32),
+                mat=torch.where(hit, res["mat"], 0),
+                normal=torch.where(hit[:, None], normal, 0.0),
+                albedo=torch.where(hit[:, None], albedo, 0.0),
+                steps=torch.where(live, res["steps"], 0),
+                obj=torch.where(hit, obj_base + oid.to(torch.int32), -1).to(torch.int32),
+            )
+            best = best.nearer(cand)
     return best
 
 
@@ -185,6 +198,14 @@ def intersect_scene(scene, origins, dirs, max_candidates: int = 4,
     semantics down to every volume traversal (ray.h:40-42 flags);
     ``dda_fn`` is the DDA function of every traversal (default D1's
     wrapper)."""
+    kind = "shadow" if shadow else "primary" if ignore is None else "scan"
+    with profiling.annotate("intersect", kind=kind):
+        return _intersect_scene(scene, origins, dirs, max_candidates, max_steps, ignore,
+                                shadow_seed, shadow, dda_fn)
+
+
+def _intersect_scene(scene, origins, dirs, max_candidates, max_steps, ignore, shadow_seed,
+                     shadow, dda_fn):
     from voxel_tracer_tpu_torch.ops.prims import intersect_prims
 
     dda_kw = _dda_kw(ignore, shadow_seed, shadow)
@@ -217,6 +238,11 @@ def march_interior(scene, obj, origins, dirs, medium,
     miss: they exit at the first non-medium voxel, an empty brick, or the
     OBB exit plane.
     """
+    with profiling.annotate("intersect", kind="interior"):
+        return _march_interior(scene, obj, origins, dirs, medium, max_steps, dda_fn)
+
+
+def _march_interior(scene, obj, origins, dirs, medium, max_steps, dda_fn):
     n = origins.shape[0]
     out = HitResult.miss(n, origins.device)
     obj_base = 0
@@ -256,10 +282,10 @@ def is_occluded(scene, origins, dirs, tmax, max_candidates: int = 4,
     and mirror rows occlude with p = 0.15 per voxel (vv.cpp:314-327).
     Without a seed every solid voxel occludes.  Returns (occluded, hit).
     """
-    hit = intersect_scene(scene, origins, dirs, max_candidates, max_steps,
-                          shadow_seed=shadow_seed,
-                          shadow=shadow_seed is not None, dda_fn=dda_fn)
-    return hit.t < tmax, hit
+    with profiling.annotate("intersect", kind="shadow"):
+        hit = _intersect_scene(scene, origins, dirs, max_candidates, max_steps, None,
+                               shadow_seed, shadow_seed is not None, dda_fn)
+        return hit.t < tmax, hit
 
 
 # the plain wavefront: every traversal on the plain loop of ops/dda.py

@@ -28,7 +28,11 @@ set_voxel`) is derived anew, so a frame never reads stale tables.
 One call allocates its outputs and, with a medium, an (N,) int32 scratch
 and one int32 counter, then launches pass 1 and, with a medium, pass 2
 (the batch rule of the JAX loop, see `csrc/dda.cu`), on the current
-stream.  `KERNEL_LAUNCHES["dda"]` counts the calls that launch.
+stream.  `KERNEL_LAUNCHES` counts the calls that launch (`dda`), the rays
+handed to `intersect_volume_local` on either branch (`dda_rays`) and the
+table derivations of `tables_for` (`dda_tables`).  Each call is a `d1`
+span (`utils/profiling.annotate`) that notes how many of its rays the
+calling stages keep (`profiling.count_kept`).
 """
 
 from __future__ import annotations
@@ -40,8 +44,9 @@ import torch
 
 from voxel_tracer_tpu_torch.ops import dda
 from voxel_tracer_tpu_torch.ops.cuda import _build
+from voxel_tracer_tpu_torch.utils import profiling
 
-KERNEL_LAUNCHES = {"dda": 0}
+KERNEL_LAUNCHES = {"dda": 0, "dda_rays": 0, "dda_tables": 0}
 
 
 def reset_launch_counts():
@@ -130,6 +135,7 @@ def tables_for(grid, brick_occ) -> DdaTables:
     place since (`_version`).  The entry holds the brick counts' base, so
     their memory cannot be reused for another tensor under the same key."""
     if grid.is_inference() or brick_occ.is_inference():    # no version counter
+        KERNEL_LAUNCHES["dda_tables"] += 1
         return dda_tables(grid, brick_occ)
     base = grid if grid._base is None else grid._base
     cache = base.__dict__.setdefault(_CACHE_ATTR, {})
@@ -140,6 +146,7 @@ def tables_for(grid, brick_occ) -> DdaTables:
         return hit[2]
     if len(cache) >= _CACHE_ENTRIES:
         cache.clear()
+    KERNEL_LAUNCHES["dda_tables"] += 1
     tables = dda_tables(grid, brick_occ)
     cache[key] = (versions, brick_occ if brick_occ._base is None else brick_occ._base,
                   tables)
@@ -177,6 +184,16 @@ def intersect_volume_local(grid, brick_occ, origin_l, dir_l, vpu,
     version for CPU tensors): the same arguments, the same dict of (N,)
     tensors (t, mat, axis, step_sign (N, 3), steps, valid, entry_axis,
     slab_tmin, slab_tmax, resolved)."""
+    n = origin_l.shape[0]
+    KERNEL_LAUNCHES["dda_rays"] += n
+    with profiling.annotate("d1", rays=n):
+        profiling.count_kept(n)
+        return _intersect(grid, brick_occ, origin_l, dir_l, vpu, oid, max_steps, medium,
+                          ignore, shadow_seed, shadow)
+
+
+def _intersect(grid, brick_occ, origin_l, dir_l, vpu, oid, max_steps, medium, ignore,
+               shadow_seed, shadow):
     dev = _build.device_of(origin_l)
     if dev.type == "cpu":
         return dda.intersect_volume_local(grid, brick_occ, origin_l, dir_l, vpu, oid=oid,

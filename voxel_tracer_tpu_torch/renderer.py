@@ -12,6 +12,11 @@ default; `composite.PLAIN`, every traversal on the plain loop; or
 `ops/cuda/whitted.MegaIntersector`, on which `render_whitted_mega` runs
 the same shading with every traversal on the B1 / B2 kernels.
 `Renderer(config, isect=...)` renders its frames on that backend.
+
+Spans (`utils/profiling.annotate`, off by default): each `Renderer.render`
+call is a root `frame` span whose ``frame_id`` counts the renderer's
+calls (`Renderer.renders`), with `raygen`, and `sky` and `tonemap` in
+`render_rays`; the traversals and shading stages beneath open their own.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from voxel_tracer_tpu_torch.models.camera import Camera, rays_for_image
 from voxel_tracer_tpu_torch.models.skydome import sample_sky
 from voxel_tracer_tpu_torch.ops import composite, tonemap
 from voxel_tracer_tpu_torch.ops.math3d import BIG_F32
+from voxel_tracer_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,6 +81,7 @@ class Renderer:
         self.device = torch.device(device)
         self.isect = isect
         self.frame = 0
+        self.renders = 0           # render calls: the frame id of their spans
         self._accu = None          # (H, W, 4) irradiance + depth history
         self._prev_planes = None   # (4, 4) previous-frame pyramid planes
 
@@ -94,11 +101,19 @@ class Renderer:
         depth_delta: camera forward motion since the previous frame
         (player.cpp:7-53), compensates the depth rejection."""
         cfg = self.config
+        self.renders += 1
+        with profiling.annotate("frame", frame_id=self.renders, width=cfg.width,
+                                height=cfg.height, shading=cfg.shading):
+            return self._render(scene, camera, frame, depth_delta)
+
+    def _render(self, scene, camera, frame, depth_delta):
+        cfg = self.config
         if frame is None:
             frame = self.frame
             self.frame = (self.frame + 1) % 120  # renderer.cpp:161-162
-        origins, dirs = rays_for_image(camera, cfg.width, cfg.height,
-                                       device=self.device)
+        with profiling.annotate("raygen"):
+            origins, dirs = rays_for_image(camera, cfg.width, cfg.height,
+                                           device=self.device)
         if not cfg.accumulate:
             return render_rays(scene, origins, dirs, frame, config=cfg, isect=self.isect)
         if self._accu is None:
@@ -138,7 +153,8 @@ def render_rays(scene, origins, dirs, frame, *, config: RenderConfig,
         hit = primary_hit
     missed = hit.t >= BIG_F32
 
-    sky = sample_sky(scene.sky, dirs)
+    with profiling.annotate("sky"):
+        sky = sample_sky(scene.sky, dirs)
     albedo = torch.where(missed[:, None], sky, hit.albedo)
 
     if config.shading == "flat":
@@ -165,7 +181,8 @@ def render_rays(scene, origins, dirs, frame, *, config: RenderConfig,
             depth_delta=depth_delta, reproject_mask=~missed)
         out["accu"] = new_accu
     color = albedo * irradiance
-    image = _TONEMAPS[config.tonemapper](color)
+    with profiling.annotate("tonemap"):
+        image = _TONEMAPS[config.tonemapper](color)
 
     shp = (h, w)
     out.update(

@@ -13,18 +13,26 @@ glass-box stand-in (`glass_box_scene`, `glass_box_camera`) and
 inverse_128_32views' blob and ring views (`blob_field`, `ring_views`).
 
 `trace()` records a `torch.profiler` trace of a code block (host and
-device timelines, exported as a Chrome trace) and `annotate()` names a
-span inside it.
+device timelines, exported as a Chrome trace).  `annotate()` is the
+program's span: off by default, and with `spans(True)` (or inside
+`recording()`) each span records its name, id, parent, frame and start
+and end on the clock of the device trace, and stands in the trace as a
+`record_function` range when a profiler window is open.  `take_spans()`
+hands the records out; `counters()` reads the kernel modules' counters.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
+import importlib
 import math
 import os
 import tempfile
+import time
 
 import numpy as np
+import torch
 
 from voxel_tracer_tpu_torch.models.camera import Camera, rays_for_image
 from voxel_tracer_tpu_torch.models.volume import VoxelVolume
@@ -61,11 +69,187 @@ def trace(logdir: str = None, host_tracer_level: int = 2):
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
-def annotate(name: str):
-    """Named sub-span inside a `trace()` capture."""
-    from torch.profiler import record_function
+# ---------------------------------------------------------------------------
+# Spans and counters
+# ---------------------------------------------------------------------------
 
-    return record_function(name)
+MAX_SPANS = 1 << 18     # records kept between two `take_spans`; later ones are dropped
+# the modules whose KERNEL_LAUNCHES dicts `counters` reads
+COUNTED = ("coherent", "dda", "diff", "diffint", "indep", "mega")
+
+_on = False
+_records = []           # spans in the order they opened
+_open = []              # the open spans, innermost last
+_next_id = 0
+_dropped = 0
+
+
+def spans(on: bool = True) -> bool:
+    """Turn span recording on or off; returns the previous setting."""
+    global _on
+    prev, _on = _on, bool(on)
+    return prev
+
+
+@contextlib.contextmanager
+def recording():
+    """Record spans inside the block, then restore the previous setting."""
+    prev = spans(True)
+    try:
+        yield
+    finally:
+        spans(prev)
+
+
+def annotate(name: str, **attrs):
+    """The program's span: a context manager, and a decorator when given no
+    attributes.  Off (the default) it returns a shared no-op.  On, it
+    records {name, id, parent, frame, start_ns, end_ns, attrs}: times in
+    ns on CLOCK_REALTIME (`time.time_ns`), the clock the profiler stamps
+    host events on; ``frame`` is the ``frame_id`` attribute of the
+    innermost span that has one.  Inside a profiler window the span also
+    enters `record_function(name)`.  ``keep`` (an (N,) bool tensor) names
+    the rows of a stage's traversals whose result the stage keeps
+    (`count_kept`); it is held while the span is open, not recorded."""
+    if not _on:
+        return _NOOP if attrs else _noop(name)
+    return _Span(name, attrs)
+
+
+class _Noop:
+    """The span when recording is off: enters and leaves, records nothing."""
+
+    __slots__ = ("name",)
+
+    def __init__(self, name=None):
+        self.name = name
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+    def __call__(self, fn):
+        if self.name is None:
+            raise TypeError("a span with attributes does not decorate")
+        return _decorate(self.name, fn)
+
+
+_NOOP = _Noop()
+
+
+@functools.cache
+def _noop(name):
+    return _Noop(name)
+
+
+def _decorate(name, fn):
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        with annotate(name):
+            return fn(*args, **kwargs)
+    return wrapper
+
+
+class _Span:
+    __slots__ = ("record", "keep", "_rf")
+
+    def __init__(self, name, attrs):
+        self.keep = attrs.pop("keep", None)
+        self.record = {"name": name, "id": None, "parent": None,
+                       "frame": attrs.pop("frame_id", None),
+                       "start_ns": None, "end_ns": None, "attrs": attrs}
+        self._rf = None
+
+    def __enter__(self):
+        global _next_id, _dropped
+        rec = self.record
+        rec["id"], _next_id = _next_id, _next_id + 1
+        if _open:
+            parent = _open[-1].record
+            rec["parent"] = parent["id"]
+            if rec["frame"] is None:
+                rec["frame"] = parent["frame"]
+        rec["start_ns"] = time.time_ns()
+        if torch._C._autograd._profiler_enabled():
+            rf = torch.autograd.profiler.record_function(rec["name"])
+            rf.__enter__()
+            self._rf = rf
+        if len(_records) < MAX_SPANS:
+            _records.append(rec)
+        else:
+            _dropped += 1
+        _open.append(self)
+        return rec
+
+    def __exit__(self, *exc):
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+        self.record["end_ns"] = time.time_ns()
+        _open.remove(self)
+        return False
+
+    def __call__(self, fn):
+        if self.record["attrs"] or self.keep is not None:
+            raise TypeError("a span with attributes does not decorate")
+        return _decorate(self.record["name"], fn)
+
+
+def count_kept(n: int):
+    """With spans on, note on the innermost open span how many of its call's
+    ``n`` rays the enclosing stages keep: the rows set in every open
+    span's ``keep`` of n rows (a device count, no host sync), all n where
+    no such mask is open.  A mask of another length belongs to a stage
+    whose rows were gathered before the call, so every row there is kept.
+    Off, it does nothing."""
+    if not _on or not _open:
+        return
+    masks = [s.keep for s in _open if s.keep is not None and s.keep.shape[0] == n]
+    kept = n
+    if masks:
+        m = masks[0]
+        for other in masks[1:]:
+            m = m & other
+        kept = m.sum()
+    _open[-1].record["attrs"]["kept"] = kept
+
+
+def current_span():
+    """The innermost open span's record, or None."""
+    return _open[-1].record if _open else None
+
+
+class _SpanList(list):
+    dropped = 0
+
+
+def take_spans():
+    """Hand out the recorded spans, in the order they opened, and clear the
+    buffer.  Each ``kept`` count is read from its device here, in one copy
+    a device; a span still open has ``end_ns`` None.  The number of spans
+    dropped past MAX_SPANS since the last take is the ``dropped``
+    attribute of the returned list."""
+    global _records, _dropped
+    out = _SpanList(_records)
+    out.dropped = _dropped
+    _records, _dropped = [], 0
+    pending = {}
+    for rec in out:
+        kept = rec["attrs"].get("kept")
+        if isinstance(kept, torch.Tensor):
+            pending.setdefault(kept.device, []).append(rec)
+    for recs in pending.values():
+        for rec, v in zip(recs, torch.stack([r["attrs"]["kept"] for r in recs]).tolist()):
+            rec["attrs"]["kept"] = v
+    return out
+
+
+def counters():
+    """Each kernel module's KERNEL_LAUNCHES, copied: {module: {name: count}}
+    (launches, and D1's `dda_rays` and `dda_tables`)."""
+    return {m: dict(importlib.import_module(f"voxel_tracer_tpu_torch.ops.cuda.{m}")
+                    .KERNEL_LAUNCHES) for m in COUNTED}
 
 
 def _procedural_crate(n: int = 32, mat: int = 30) -> np.ndarray:
