@@ -49,7 +49,8 @@ them:
   built from `tools/torch_dda_trials.py`) timed on the random rays; then
   the slice's path at 1280x768 on the glass box scene: the exact Whitted
   frame (`exact_fallback=True`, its fallback on D1) and the wavefront
-  `Renderer` (full shading, 8 bounces, every traversal on D1), each
+  `Renderer` (full shading, 8 bounces, every traversal on D1 and its
+  glue on C1, one launch of each C1 kernel a traversal call), each
   equal field for field to its plain frame (B1 / B2 / the DDA plain;
   `composite.PLAIN`) and timed beside it, and each frame's D1 calls
   replayed on D1 and on the parent design in turns;
@@ -136,6 +137,10 @@ parent design's device ms on them (`parent_device_ms`), every list under
 D1 launches and device ms a frame, the plain frame's ms, D1's bound
 summed over the frame's calls, and the frame's D1 calls replayed on D1
 and on the parent design: `replay_device_ms`, `parent_replay_device_ms`);
+C1 (`composite_local`, `composite_record`) its launches on the wavefront
+frame, device ms a launch and a frame, and its bytes bound from that
+frame's rays (`bound_ms` a launch, `bound_ms_per_frame`; no `ms` or
+`plain_ms`: the glue it replaced is timed in the frame alone);
 D2 and D3 (`diff_fwd`, `diff_bwd`) their numbers on inverse_128's step,
 each [march] input under `inputs` (D2 also `with_pack_device_ms` and
 `grids`, D2 on the plain grids; D3 `whole_device_ms`, its glue included;
@@ -1963,6 +1968,8 @@ def _frame_numbers(tag, frame, reps):
     launches = (d1.KERNEL_LAUNCHES["dda"] - before) / 2
     busy = busy_ms(events) / 2 if events else None
     d1_ms = sum(b - a for n, a, b in events if label_of(n) == "D1") / 2e3 if events else None
+    c1 = {k: sum(b - a for n, a, b in events if k in n) / 2e3 if events else None
+          for k in C1_KERNELS.values()}
     syncs = count_host_syncs(lambda: frame(0))
     log(f"[{tag}] {ms:.4f} ms a frame over {reps} frames (events); device busy "
         f"{'not measured' if busy is None else f'{busy:.4f} ms'} in {len(events) / 2:.1f} "
@@ -1973,7 +1980,8 @@ def _frame_numbers(tag, frame, reps):
     return dict(ms=ms, device_busy_ms=busy, kernels_per_frame=len(events) / 2,
                 idle_share=None if busy is None else 1.0 - busy / ms,
                 host_syncs_per_frame=syncs, d1_launches_per_frame=launches,
-                d1_device_ms_per_frame=d1_ms)
+                d1_device_ms_per_frame=d1_ms,
+                c1_device_ms_per_frame={k: c1[v] for k, v in C1_KERNELS.items()})
 
 
 def d1_frame_bound(frame, ix=None):
@@ -2001,6 +2009,64 @@ def d1_frame_bound(frame, ix=None):
             ix.dda_fn = real
     by = {k: sum(ms for ms, b in calls if b == k) for k in ("bytes", "operations")}
     return sum(by.values()), max(by, key=by.get), len(calls)
+
+
+C1_KERNELS = {"composite_local": "composite_local_kernel",
+              "composite_record": "composite_record_kernel"}
+
+
+def c1_frame_bound(frame):
+    """C1's bound over one frame: per kernel, the bytes its calls must move
+    (each ray's inputs read once and its outputs written once, and the
+    running record read where a call merges into it; the group's tables, a
+    few hundred bytes, left out) over PEAK_BYTES_PER_S, in ms, and its
+    calls."""
+    from voxel_tracer_tpu_torch.ops.cuda import composite as ck
+    real_local, real_record = ck.to_local, ck.record
+    moved = {k: [] for k in C1_KERNELS}
+
+    def to_local(group, origins, dirs, oid=0, obj=None, obj_base=0):
+        per = 12 + (0 if dirs.stride(0) == 0 else 12) + 24   # origin, direction; o_l, d_l
+        if obj is not None:                                   # obj; vpu and D1's oid out
+            per += 4 + 4 + (8 if group.grid.shape[0] > 1 else 0)
+        elif not isinstance(oid, int):                        # oid; vpu out
+            per += 8 + 4
+        moved["composite_local"].append(origins.shape[0] * per)
+        return real_local(group, origins, dirs, oid=oid, obj=obj, obj_base=obj_base)
+
+    def record(group, res, best=None, oid=0, obj=None, obj_base=0, live=None, select=False):
+        per = 28 + 40 + (1 if live is not None else 0)        # D1's t, mat, axis, steps,
+        per += 4 if obj is not None else 0 if isinstance(oid, int) else 8   # step_sign; record
+        if best is not None and not select:                   # a merge reads the record
+            per += 40
+        moved["composite_record"].append(res["t"].shape[0] * per)
+        return real_record(group, res, best, oid=oid, obj=obj, obj_base=obj_base, live=live,
+                           select=select)
+
+    ck.to_local, ck.record = to_local, record
+    try:
+        frame()
+    finally:
+        ck.to_local, ck.record = real_local, real_record
+    return {k: (sum(v) / PEAK_BYTES_PER_S * 1e3, len(v)) for k, v in moved.items()}
+
+
+@contextlib.contextmanager
+def d1_calls():
+    """Counts the calls of D1's wrapper (`ops/cuda/dda.intersect_volume_local`)
+    inside the block, whichever branch runs: [count]."""
+    from voxel_tracer_tpu_torch.ops.cuda import dda as d1
+    real, count = d1.intersect_volume_local, [0]
+
+    def counted(*args, **kw):
+        count[0] += 1
+        return real(*args, **kw)
+
+    d1.intersect_volume_local = counted
+    try:
+        yield count
+    finally:
+        d1.intersect_volume_local = real
 
 
 @contextlib.contextmanager
@@ -2047,6 +2113,7 @@ def phase_dda_frames(device="cuda", size=DF_SIZE, small=DF_SMALL):
     to its plain frame and timed beside it.  On the CPU (a rehearsal at a
     small ``size``) nothing is timed and D1 is not launched."""
     from voxel_tracer_tpu_torch.ops import composite, dda
+    from voxel_tracer_tpu_torch.ops.cuda import composite as ck
     from voxel_tracer_tpu_torch.ops.cuda import dda as d1
     from voxel_tracer_tpu_torch.ops.cuda import mega
     from voxel_tracer_tpu_torch.ops.cuda.whitted import MegaIntersector, render_whitted_mega
@@ -2100,10 +2167,19 @@ def phase_dda_frames(device="cuda", size=DF_SIZE, small=DF_SMALL):
     cfg = RenderConfig(width=w, height=h)
     cam = glass_box_camera(merged, WH_THETA, w, h)
     d1.reset_launch_counts()
-    k = Renderer(cfg, device=device).render(sd, cam, frame=0)
-    sync()
+    ck.reset_launch_counts()
+    with d1_calls() as calls:
+        k = Renderer(cfg, device=device).render(sd, cam, frame=0)
+        sync()
     launches = d1.KERNEL_LAUNCHES["dda"]
+    c1 = dict(ck.KERNEL_LAUNCHES)
     require(launches > 0 or not on_card, "D1 was not launched on the wavefront frame")
+    # one group a traversal call (the merged volume): one launch of each C1 kernel a call
+    log(f"[dda frames] wavefront: {calls[0]} traversal calls, C1 counts {c1}")
+    fused = calls[0] if on_card else 0
+    require(c1 == {"composite_fused": fused, "composite_glue": calls[0] - fused,
+                   "composite_local": fused, "composite_record": fused} and calls[0] > 0,
+            f"wavefront frame: C1 counts {c1} against {calls[0]} traversal calls")
     check_whitted_frame("dda frames wavefront", k, w, h)
     p, plain_s = _plain_frame(lambda: Renderer(cfg, device=device, isect=composite.PLAIN)
                               .render(sd, cam, frame=0), sync)
@@ -2121,7 +2197,8 @@ def phase_dda_frames(device="cuda", size=DF_SIZE, small=DF_SMALL):
     log(f"[dda frames] wavefront Renderer {w}x{h} (full shading, {cfg.max_bounces} bounces): "
         f"D1 launches {launches}; plain-DDA frame at {held[0]}x{held[1]} in {plain_s:.1f} s")
     res["wavefront"] = dict(launches=launches, plain_ms=plain_s * 1e3, plain_size=list(held),
-                            max_abs_err=wf_err)
+                            max_abs_err=wf_err, traversal_calls=calls[0],
+                            c1_launches={k: c1[k] for k in C1_KERNELS})
     if on_card:
         r = Renderer(cfg, device=device)
         cams = [glass_box_camera(merged, WH_THETA + 0.001 * i, w, h) for i in range(4)]
@@ -2133,6 +2210,12 @@ def phase_dda_frames(device="cuda", size=DF_SIZE, small=DF_SMALL):
         log(f"[dda frames] wavefront Renderer: D1 bound {bnd[0]:.4f} ms a frame ({bnd[1]}) "
             f"over its {bnd[2]} calls")
         res["wavefront"].update(bound_ms=bnd[0], bound_by=bnd[1])
+        c1_bnd = c1_frame_bound(lambda: r.render(sd, cams[0], frame=0))
+        c1_ms = res["wavefront"]["c1_device_ms_per_frame"]
+        for key, (b_ms, n_calls) in c1_bnd.items():
+            log(f"[dda frames] wavefront Renderer: {key} device {_opt_ms(c1_ms[key])} a frame, "
+                f"bound {b_ms:.4f} ms (bytes) over its {n_calls} calls")
+        res["wavefront"]["c1_bound_ms_per_frame"] = {k: v[0] for k, v in c1_bnd.items()}
         # each frame's D1 calls, captured and replayed on D1 and on the parent
         mod, _lib = parent_design("torch_dda_trials")
         for key, calls in mod.frame_calls(size).items():
@@ -3495,6 +3578,17 @@ def main():
         edits=dda_lists_res.pop("edits"),
         lists={k.replace(" ", "_"): v for k, v in dda_lists_res.items()},
         exact_whitted=dfr["exact_whitted"], wavefront=dfr["wavefront"]))
+    wf = dfr["wavefront"]
+    for name, line in (("composite_local", 69), ("composite_record", 76)):
+        n = wf["c1_launches"][name]
+        dev, bnd = wf["c1_device_ms_per_frame"][name], wf["c1_bound_ms_per_frame"][name]
+        kernels.append(dict(
+            name=name, route="cuda", source="voxel_tracer_tpu_torch/csrc/composite.cu",
+            replaces=f"voxel_tracer_tpu/ops/composite.py:{line}", launches=n,
+            max_abs_err=wf["max_abs_err"], ms=None,
+            device_ms=None if dev is None else dev / n, plain_ms=None, bound_ms=bnd / n,
+            bound_by="bytes", library_ms=None, device_ms_per_frame=dev,
+            bound_ms_per_frame=bnd, traversal_calls=wf["traversal_calls"]))
     inv = march["inputs"]["inverse_128 step"]
     for name, mode, line in (("diff_fwd", "fwd", 87), ("diff_bwd", "bwd", 140)):
         t = inv[mode]

@@ -10,7 +10,7 @@ DDA is tests/test_torch_cuda.py's (card only).  Here:
   different results; each call equals the JAX function's bit for bit
   (t as bits; mat, axis, steps, step_sign and valid equal);
 - routing, with the D1 wrapper replaced by a recorder that runs the plain
-  DDA: composite's sites (`_trace_one`, `intersect_group` over stacked
+  DDA: composite's sites (one volume, `intersect_group` over stacked
   grids, `march_interior`, `is_occluded`), `MegaIntersector._dda_fallback`
   and integrate's `use_fallback` reach the wrapper; the plain selection
   (`composite.PLAIN`, ``dda_fn=dda.intersect_volume_local``) reaches

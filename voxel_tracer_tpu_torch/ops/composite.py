@@ -17,6 +17,14 @@ tensors.  `PLAIN` is this module's interface with ``dda_fn`` set to the
 plain loop on any device: the plain wavefront frame is
 `Renderer(config, isect=composite.PLAIN)`.
 
+Around each D1 call, the glue carries the rays to the volume's local
+space (`_local_rays`) and turns D1's outputs into the hit record merged
+into the running best (`_record`).  Both are the plain versions of the
+two kernels of `ops/cuda/composite.py` (`to_local`, `record`), which a
+traversal of CUDA tensors on D1 (``dda_fn`` None) launches in their place,
+with the same float program; CPU tensors and any ``dda_fn`` take the glue.
+Its `KERNEL_LAUNCHES` counts the traversal calls of each.
+
 Spans (`utils/profiling.annotate`, off by default): each traversal is an
 `intersect` span whose ``kind`` is primary, shadow, interior or scan (an
 ``ignore``d medium: glass scans and the continuation); the prepass is a
@@ -33,6 +41,7 @@ from typing import NamedTuple
 import torch
 
 from voxel_tracer_tpu_torch.ops import dda
+from voxel_tracer_tpu_torch.ops.cuda import composite as kernels
 from voxel_tracer_tpu_torch.ops.cuda import dda as dda_kernel
 from voxel_tracer_tpu_torch.ops.math3d import BIG_F32, rigid_inverse_point, rigid_inverse_vec
 from voxel_tracer_tpu_torch.utils import profiling
@@ -78,26 +87,72 @@ def _to_local(rot, pos, pivot, origins, dirs):
     return rigid_inverse_point(rot, pos, pivot, origins), rigid_inverse_vec(rot, dirs)
 
 
-def _trace_one(group, oid_static: int, origins, dirs, max_steps,
-               obj_base: int = 0, *, dda_fn=None, **dda_kw):
-    """Trace all rays against one object of a group (no candidate select)."""
-    rot = group.rot[oid_static]
-    o_l, d_l = _to_local(rot, group.pos[oid_static], group.pivot[oid_static],
-                         origins, dirs)
-    res = (dda_fn or dda_kernel.intersect_volume_local)(
-        group.grid[oid_static], group.brick_occ[oid_static], o_l, d_l,
-        group.vpu[oid_static], max_steps=max_steps, **dda_kw)
+def _objects(group, oid, obj, obj_base):
+    """The object of each ray: ``oid`` (an int, or an (N,) int64 tensor),
+    or clamp(obj - obj_base, 0, O - 1) of global indices ``obj``."""
+    if obj is None:
+        return oid
+    return torch.clamp(obj - obj_base, 0, group.grid.shape[0] - 1).long()
+
+
+def _local_rays(group, origins, dirs, oid=0, obj=None, obj_base: int = 0):
+    """Rays into the local space of each one's object of ``group``: (o_l,
+    d_l, vpu, oid), the plain version of `ops/cuda/composite.to_local`
+    (``oid``: D1's per-ray object of a stacked group, for ``obj``)."""
+    o = _objects(group, oid, obj, obj_base)
+    o_l, d_l = _to_local(group.rot[o], group.pos[o], group.pivot[o], origins, dirs)
+    return o_l, d_l, group.vpu[o], o if obj is not None and group.grid.shape[0] > 1 else None
+
+
+def _albedo(group, o, mat):
+    idx = torch.clamp(mat, 0, 255).long()
+    if isinstance(o, int):
+        return group.palette[o][idx]
+    return group.palette.reshape(-1, 3)[o * 256 + idx]
+
+
+def _record(group, res, best=None, oid=0, obj=None, obj_base: int = 0, live=None,
+            select: bool = False) -> HitResult:
+    """D1's outputs ``res`` against ``group`` merged into ``best`` (None:
+    `HitResult.miss`), the plain version of `ops/cuda/composite.record`.
+
+    Nearer: the traced object(s)' record (mat, normal and albedo zeroed on
+    a miss, obj = obj_base + o or -1; with a candidate's ``live`` mask, t
+    and steps masked too), then `HitResult.nearer`.  Select (the interior
+    march): rows whose ``obj`` lies in the group take D1's raw outputs and
+    their ``obj``."""
+    if best is None:
+        best = HitResult.miss(res["t"].shape[0], res["t"].device)
+    o = _objects(group, oid, obj, obj_base)
+    normal = dda.normal_from_axis(res["axis"], res["step_sign"], group.rot[o])
+    albedo = _albedo(group, o, res["mat"])
+    if select:
+        sel = (obj >= obj_base) & (obj < obj_base + group.grid.shape[0])
+        return HitResult(
+            t=torch.where(sel, res["t"], best.t),
+            mat=torch.where(sel, res["mat"], best.mat),
+            normal=torch.where(sel[:, None], normal, best.normal),
+            albedo=torch.where(sel[:, None], albedo, best.albedo),
+            steps=torch.where(sel, res["steps"], best.steps),
+            obj=torch.where(sel, obj.to(torch.int32), best.obj),
+        )
     hit = res["t"] < BIG_F32
-    normal = dda.normal_from_axis(res["axis"], res["step_sign"], rot)
-    albedo = group.palette[oid_static][torch.clamp(res["mat"], 0, 255).long()]
-    return HitResult(
-        t=res["t"],
+    if live is not None:
+        hit = live & hit
+    obj_id = obj_base + (o if isinstance(o, int) else o.to(torch.int32))
+    return best.nearer(HitResult(
+        t=res["t"] if live is None else torch.where(hit, res["t"], BIG_F32),
         mat=torch.where(hit, res["mat"], 0),
         normal=torch.where(hit[:, None], normal, 0.0),
         albedo=torch.where(hit[:, None], albedo, 0.0),
-        steps=res["steps"],
-        obj=torch.where(hit, obj_base + oid_static, -1).to(torch.int32),
-    )
+        steps=res["steps"] if live is None else torch.where(live, res["steps"], 0),
+        obj=torch.where(hit, obj_id, -1).to(torch.int32),
+    ))
+
+
+def _stages(fused):
+    """(to_local, record): the kernels or their plain versions."""
+    return (kernels.to_local, kernels.record) if fused else (_local_rays, _record)
 
 
 def _slab_prepass_topk(group, origins, dirs, k: int):
@@ -130,49 +185,48 @@ def _topk(group, origins, dirs, k):
     return tk, idk
 
 
-def _gather_objects(group, oid):
-    return (group.rot[oid], group.pos[oid], group.pivot[oid], group.vpu[oid])
-
-
 def intersect_group(group, origins, dirs, max_candidates: int = 4,
                     max_steps: int = dda.MAX_STEPS, obj_base: int = 0,
                     *, dda_fn=None, **dda_kw) -> HitResult:
-    """Nearest hit against one shape-homogeneous group of volumes."""
-    n = origins.shape[0]
+    """Nearest hit against one shape-homogeneous group of volumes (one
+    volume: its record, no candidate select), merged into the miss record
+    as a scene's first group is: a miss reads t = BIG_F32 even where D1
+    gives a degenerate ray inf."""
+    return _intersect_group(group, origins, dirs, max_candidates, max_steps, obj_base, None,
+                            kernels.fused(origins, dda_fn), dda_fn, dda_kw)
+
+
+def _intersect_group(group, origins, dirs, max_candidates, max_steps, obj_base, best,
+                     fused, dda_fn, dda_kw) -> HitResult:
+    """`intersect_group` merged into ``best`` (None: a miss record; the
+    kernels merge in place).  A candidate race keeps its own record, since
+    its early out compares with the group's best alone."""
+    to_local, record = _stages(fused)
+    d1 = dda_fn or dda_kernel.intersect_volume_local
     o_count = group.grid.shape[0]
     if o_count == 1:
-        return _trace_one(group, 0, origins, dirs, max_steps, obj_base,
-                          dda_fn=dda_fn, **dda_kw)
+        o_l, d_l, vpu, _ = to_local(group, origins, dirs, oid=0)
+        res = d1(group.grid[0], group.brick_occ[0], o_l, d_l, vpu, max_steps=max_steps,
+                 **dda_kw)
+        return record(group, res, best, oid=0, obj_base=obj_base)
 
     k = min(max_candidates, o_count)
     cand_t, cand_id = _slab_prepass_topk(group, origins, dirs, k)
-
-    best = HitResult.miss(n, origins.device)
-    pal_flat = group.palette.reshape(-1, 3)
+    race = None
     for slot in range(k):
         oid = cand_id[:, slot].long()
         live = cand_t[:, slot] < BIG_F32
         # early out: a candidate can't beat an existing nearer hit
-        live = live & (cand_t[:, slot] < best.t)
+        if race is not None:
+            live = live & (cand_t[:, slot] < race.t)
         with profiling.annotate("candidate", slot=slot, keep=live):
-            rot, pos, pivot, vpu = _gather_objects(group, oid)
-            o_l, d_l = _to_local(rot, pos, pivot, origins, dirs)
-            res = (dda_fn or dda_kernel.intersect_volume_local)(
-                group.grid, group.brick_occ, o_l, d_l, vpu, oid=oid,
-                max_steps=max_steps, **dda_kw)
-            hit = live & (res["t"] < BIG_F32)
-            normal = dda.normal_from_axis(res["axis"], res["step_sign"], rot)
-            albedo = pal_flat[oid * 256 + torch.clamp(res["mat"], 0, 255).long()]
-            cand = HitResult(
-                t=torch.where(hit, res["t"], BIG_F32),
-                mat=torch.where(hit, res["mat"], 0),
-                normal=torch.where(hit[:, None], normal, 0.0),
-                albedo=torch.where(hit[:, None], albedo, 0.0),
-                steps=torch.where(live, res["steps"], 0),
-                obj=torch.where(hit, obj_base + oid.to(torch.int32), -1).to(torch.int32),
-            )
-            best = best.nearer(cand)
-    return best
+            o_l, d_l, vpu, _ = to_local(group, origins, dirs, oid=oid)
+            res = d1(group.grid, group.brick_occ, o_l, d_l, vpu, oid=oid,
+                     max_steps=max_steps, **dda_kw)
+            race = record(group, res, race, oid=oid, obj_base=obj_base, live=live)
+    # the first group needs no merge: a race starts from the miss record and
+    # takes only t < 1e30, so miss.nearer(race) is race itself
+    return race if best is None else best.nearer(race)
 
 
 def _dda_kw(ignore, shadow_seed, shadow):
@@ -209,13 +263,14 @@ def _intersect_scene(scene, origins, dirs, max_candidates, max_steps, ignore, sh
     from voxel_tracer_tpu_torch.ops.prims import intersect_prims
 
     dda_kw = _dda_kw(ignore, shadow_seed, shadow)
-    best = HitResult.miss(origins.shape[0], origins.device)
-    obj_base = 0
+    fused = kernels.fused(origins, dda_fn)
+    best, obj_base = None, 0
     for group in scene.groups:
-        best = best.nearer(
-            intersect_group(group, origins, dirs, max_candidates, max_steps,
-                            obj_base, dda_fn=dda_fn, **dda_kw))
+        best = _intersect_group(group, origins, dirs, max_candidates, max_steps, obj_base,
+                                best, fused, dda_fn, dda_kw)
         obj_base += group.grid.shape[0]
+    if best is None:
+        best = HitResult.miss(origins.shape[0], origins.device)
     prim = intersect_prims(scene.prims, origins, dirs)
     if prim is not None:
         t, mat, normal, albedo = prim
@@ -243,33 +298,18 @@ def march_interior(scene, obj, origins, dirs, medium,
 
 
 def _march_interior(scene, obj, origins, dirs, medium, max_steps, dda_fn):
-    n = origins.shape[0]
-    out = HitResult.miss(n, origins.device)
-    obj_base = 0
+    to_local, record = _stages(kernels.fused(origins, dda_fn))
+    d1 = dda_fn or dda_kernel.intersect_volume_local
+    obj = obj.to(torch.int32)
+    out, obj_base = None, 0
     for group in scene.groups:
         o_count = group.grid.shape[0]
-        oid = torch.clamp(obj - obj_base, 0, o_count - 1).long()
-        in_group = (obj >= obj_base) & (obj < obj_base + o_count)
-        rot, pos, pivot, vpu = _gather_objects(group, oid)
-        o_l, d_l = _to_local(rot, pos, pivot, origins, dirs)
-        res = (dda_fn or dda_kernel.intersect_volume_local)(
-            group.grid, group.brick_occ, o_l, d_l, vpu,
-            oid=oid if o_count > 1 else None,
-            max_steps=max_steps, medium=medium)
-        normal = dda.normal_from_axis(res["axis"], res["step_sign"], rot)
-        pal_flat = group.palette.reshape(-1, 3)
-        albedo = pal_flat[oid * 256 + torch.clamp(res["mat"], 0, 255).long()]
-        sel = in_group
-        out = HitResult(
-            t=torch.where(sel, res["t"], out.t),
-            mat=torch.where(sel, res["mat"], out.mat),
-            normal=torch.where(sel[:, None], normal, out.normal),
-            albedo=torch.where(sel[:, None], albedo, out.albedo),
-            steps=torch.where(sel, res["steps"], out.steps),
-            obj=torch.where(sel, obj.to(torch.int32), out.obj),
-        )
+        o_l, d_l, vpu, oid = to_local(group, origins, dirs, obj=obj, obj_base=obj_base)
+        res = d1(group.grid, group.brick_occ, o_l, d_l, vpu, oid=oid, max_steps=max_steps,
+                 medium=medium)
+        out = record(group, res, out, obj=obj, obj_base=obj_base, select=True)
         obj_base += o_count
-    return out
+    return HitResult.miss(origins.shape[0], origins.device) if out is None else out
 
 
 def is_occluded(scene, origins, dirs, tmax, max_candidates: int = 4,
@@ -290,4 +330,5 @@ def is_occluded(scene, origins, dirs, tmax, max_candidates: int = 4,
 
 # the plain wavefront: every traversal on the plain loop of ops/dda.py
 PLAIN = SimpleNamespace(**{f.__name__: partial(f, dda_fn=dda.intersect_volume_local)
-                           for f in (intersect_scene, march_interior, is_occluded)})
+                           for f in (intersect_scene, intersect_group, march_interior,
+                                     is_occluded)})

@@ -77,7 +77,7 @@ def make_grid_sharded_trace(mesh: Mesh, max_steps: int = 256):
     g = mesh.shape[GRID]
 
     def trace(slab: VolumeData, o, d):
-        hit = composite._trace_one(slab, 0, o, d, max_steps)
+        hit = composite.intersect_group(slab, o, d, max_steps=max_steps)
         gathered = composite.HitResult(*(mesh.all_gather(GRID, x) for x in hit))
         return _min_reduce_hits(gathered, g)
 
