@@ -5,6 +5,9 @@ src/graphics/scene.{h,cpp}).  The host-side `Scene` holds numpy volumes;
 `Scene.data(device)` uploads it as a `SceneData` of tensors, with the
 volumes grouped by grid shape and each group stacked along a leading
 object axis (`ops/composite.py` composes the nearest hit across them).
+`SceneData.with_transforms` moves objects between frames: it uploads only
+their new rotations and positions, so every other tensor, and what the
+kernels keep on the grids (D1's tables), carries over.
 
 Default sun direction/color match scene.h:22-23.
 """
@@ -19,6 +22,7 @@ import torch
 
 from voxel_tracer_tpu_torch.models.skydome import SkyDome, SkyDomeData
 from voxel_tracer_tpu_torch.models.volume import VolumeData, VoxelVolume
+from voxel_tracer_tpu_torch.utils import profiling
 
 SUN_DIR = np.array([-0.619501, 0.465931, -0.631765], np.float32)  # scene.h:22
 SUN_LIGHT = np.array([0.95, 0.93, 0.875], np.float32)             # scene.h:23
@@ -44,6 +48,47 @@ class SceneData(NamedTuple):
     lights: SphereLightData
     sky: SkyDomeData
     prims: "PrimsData"        # analytic spheres/capsules (ops/prims.py)
+
+    def with_transforms(self, transforms) -> "SceneData":
+        """This scene with new rigid transforms for some of its objects (the
+        per-frame motion of scene.cpp:40-43, where the reference rebuilds
+        its BVH).  ``transforms``: {object: (rot (3, 3), pos (3,))} of host
+        values (numpy arrays, lists or CPU tensors); an object is the
+        global index `HitResult.obj` reports (groups in order, objects in
+        stack order).
+
+        A group with a moved object gets new ``rot`` (O, 3, 3) / ``pos``
+        (O, 3) tensors; every other tensor is this scene's own object, so
+        the tables D1 keeps on a grid (`ops/cuda/dda.tables_for`) stay
+        valid.  One host-to-device copy from pinned memory, which does not
+        synchronize, carries every new transform."""
+        with profiling.annotate("scene.update", objects=len(transforms)):
+            total = sum(g.grid.shape[0] for g in self.groups)
+            if any(not 0 <= o < total for o in transforms):
+                raise ValueError(f"objects {sorted(transforms)}: expected indices in [0, {total})")
+            if not transforms:
+                return self
+            row = {o: r for r, o in enumerate(transforms)}
+            host = np.concatenate([np.concatenate([np.asarray(rot, np.float32).reshape(9),
+                                                   np.asarray(pos, np.float32).reshape(3)])
+                                   for rot, pos in transforms.values()])
+            buf = torch.from_numpy(host)
+            dev = self.sun_dir.device
+            if dev.type == "cuda":
+                buf = buf.pin_memory().to(dev, non_blocking=True)
+            buf = buf.view(len(row), 12)
+            groups, base = [], 0
+            for g in self.groups:
+                rows = [row.get(base + k) for k in range(g.grid.shape[0])]
+                if any(r is not None for r in rows):
+                    g = g._replace(
+                        rot=torch.cat([g.rot[k:k + 1] if r is None else buf[r, :9].view(1, 3, 3)
+                                       for k, r in enumerate(rows)]),
+                        pos=torch.cat([g.pos[k:k + 1] if r is None else buf[r:r + 1, 9:]
+                                       for k, r in enumerate(rows)]))
+                groups.append(g)
+                base += len(rows)
+            return self._replace(groups=tuple(groups))
 
 
 @dataclass
