@@ -61,6 +61,12 @@ them:
   wavefront `Renderer`, a drone moved by `with_transforms`, O(1) table
   edits against a repack, frame time and host syncs; then game_demo's
   loop for 14 frames (the laser must carve voxels);
+- the top-K prepass C2 (`composite_topk_kernel`) on its main path: the
+  wavefront `Renderer` (full shading, 8 bounces) on the default scene at
+  1280x720, the four drones one stacked group: one C2 launch for each
+  prepass call, the frame bit-equal to the frame on the plain prepass
+  (`composite._topk`), and the frame's prepass calls replayed on C2 and
+  on `_topk`, equal bit for bit and timed;
 - the differentiable surface path: `render_lambert_surface_mega` on the
   bench scene at 512x512 (B1 + B2 under autograd) against the same
   computation on the plain versions and against the wavefront
@@ -140,7 +146,12 @@ and on the parent design: `replay_device_ms`, `parent_replay_device_ms`);
 C1 (`composite_local`, `composite_record`) its launches on the wavefront
 frame, device ms a launch and a frame, and its bytes bound from that
 frame's rays (`bound_ms` a launch, `bound_ms_per_frame`; no `ms` or
-`plain_ms`: the glue it replaced is timed in the frame alone);
+`plain_ms`: the glue it replaced is timed in the frame alone); C2
+(`composite_topk`) its launches on the default scene's wavefront frame
+and its numbers at that frame's largest prepass call (`rays`, `k`,
+`objects`), and over the frame's calls (`device_ms_per_frame`,
+`plain_ms_per_frame`, `bound_ms_per_frame`; the bytes bound: 24 B read
+and 8 K written a ray);
 D2 and D3 (`diff_fwd`, `diff_bwd`) their numbers on inverse_128's step,
 each [march] input under `inputs` (D2 also `with_pack_device_ms` and
 `grids`, D2 on the plain grids; D3 `whole_device_ms`, its glue included;
@@ -310,11 +321,12 @@ def phase_build():
               if "bytes stack frame" in ln]
     require(all(re.match(r"0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
                          ln) for ln in frames), f"B5 uses local memory: {frames}")
-    # D2 (both templates), D3 and the record's pack spill nothing
-    frames = [ln.strip() for ln in logs.get("diff", "").splitlines()
-              if "bytes stack frame" in ln]
-    require(all("0 bytes spill stores, 0 bytes spill loads" in ln for ln in frames),
-            f"D2 / D3 spill: {frames}")
+    # D2 (both templates), D3 and the record's pack spill nothing, nor do C1 and C2
+    for name in ("diff", "composite"):
+        frames = [ln.strip() for ln in logs.get(name, "").splitlines()
+                  if "bytes stack frame" in ln]
+        require(all("0 bytes spill stores, 0 bytes spill loads" in ln for ln in frames),
+                f"{name}.cu's kernels spill: {frames}")
 
 
 @timed_phase
@@ -2174,11 +2186,13 @@ def phase_dda_frames(device="cuda", size=DF_SIZE, small=DF_SMALL):
     launches = d1.KERNEL_LAUNCHES["dda"]
     c1 = dict(ck.KERNEL_LAUNCHES)
     require(launches > 0 or not on_card, "D1 was not launched on the wavefront frame")
-    # one group a traversal call (the merged volume): one launch of each C1 kernel a call
+    # one group a traversal call (the merged volume): one launch of each C1 kernel a call,
+    # and no prepass (C2 runs on stacked groups alone)
     log(f"[dda frames] wavefront: {calls[0]} traversal calls, C1 counts {c1}")
     fused = calls[0] if on_card else 0
     require(c1 == {"composite_fused": fused, "composite_glue": calls[0] - fused,
-                   "composite_local": fused, "composite_record": fused} and calls[0] > 0,
+                   "composite_local": fused, "composite_record": fused,
+                   "composite_topk": 0} and calls[0] > 0,
             f"wavefront frame: C1 counts {c1} against {calls[0]} traversal calls")
     check_whitted_frame("dda frames wavefront", k, w, h)
     p, plain_s = _plain_frame(lambda: Renderer(cfg, device=device, isect=composite.PLAIN)
@@ -2533,6 +2547,110 @@ def phase_multi(device="cuda", size=(MU_W, MU_H), small=(MU_SMALL_W, MU_SMALL_H)
                kernels=kernels / 3, idle=idle, b2_per_frame=per_frame, b2_dev_ms=b2_dev,
                host_syncs=syncs, slab_mask_syncs=len(slab_masks))
     return res
+
+
+PP_W, PP_H = 1280, 720                 # the wavefront frame's default size
+C2_REPS = 50                           # serialized launches timed at the largest call
+
+
+def _same_bits(a, b):
+    """Two tensors of one shape and dtype with the same bytes (NaN too)."""
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8)))
+
+
+def c2_bytes(n, dirs, k):
+    """The bytes a prepass call must move: each ray's origin (12 B) and
+    direction (12, or none where one row is broadcast) read once, its K
+    slots of t and id (8 K) written once; the group's tables, a few hundred
+    bytes, left out."""
+    return n * (12 + (0 if dirs.stride(0) == 0 else 12) + 8 * k)
+
+
+@timed_phase
+def phase_prepass(device="cuda", size=(PP_W, PP_H)):
+    """[prepass] C2 on its main path: the wavefront Renderer (RenderConfig's
+    defaults: full shading, 8 bounces) on the default scene, whose four
+    drones are one stacked group, at 1280x720, launch counts at 0 just
+    before the frame: one C2 launch for each of the frame's prepass calls
+    and no traversal on the glue; the frame equal field for field, bit for
+    bit, to the same frame on the plain prepass (`composite._topk`); then
+    the frame's prepass calls replayed on C2 and on `_topk`, equal bit for
+    bit, timed, and bounded by the bytes each must move (`c2_bytes`).
+    Returns C2's numbers for the `kernels` line."""
+    from voxel_tracer_tpu_torch.ops import composite
+    from voxel_tracer_tpu_torch.ops.cuda import composite as ck
+    from voxel_tracer_tpu_torch.renderer import RenderConfig, Renderer
+    _vols, scene = multi_scene()
+    sd = scene.data(device)
+    w, h = size
+    cfg = RenderConfig(width=w, height=h)
+    cam = multi_camera(0.0, w, h)
+    real, prepass = ck.topk, composite._slab_prepass_topk
+    calls, n_prepass = [], [0]
+
+    def recorded(group, origins, dirs, k):
+        d = dirs[:1].clone().expand_as(dirs) if dirs.stride(0) == 0 else dirs.clone()
+        calls.append((group, origins.clone(), d, k))
+        return real(group, origins, dirs, k)
+
+    def counted(*args):
+        n_prepass[0] += 1
+        return prepass(*args)
+
+    ck.reset_launch_counts()
+    ck.topk, composite._slab_prepass_topk = recorded, counted
+    try:
+        out = Renderer(cfg, device=device).render(sd, cam, frame=0)
+        sync(device)
+    finally:
+        ck.topk, composite._slab_prepass_topk = real, prepass
+    counts = dict(ck.KERNEL_LAUNCHES)
+    shapes = sorted({(c[1].shape[0], c[3], c[0].grid.shape[0], c[2].stride(0) == 0)
+                     for c in calls})
+    log(f"[prepass] default scene {w}x{h}, {cfg.max_bounces} bounces: {n_prepass[0]} prepass "
+        f"calls, counts {counts}; calls (rays, K, objects, broadcast direction): {shapes}")
+    require(counts["composite_topk"] == n_prepass[0] == len(calls) > 0,
+            f"prepass: {counts['composite_topk']} C2 launches for {n_prepass[0]} calls")
+    require(counts["composite_glue"] == 0, f"prepass: traversals on the glue: {counts}")
+
+    ck.topk = lambda group, o, d, k: composite._topk(group, o, d, k)
+    try:
+        ref = Renderer(cfg, device=device).render(sd, cam, frame=0)
+    finally:
+        ck.topk = real
+    differ = [f for f in out if isinstance(out[f], torch.Tensor)
+              and not _same_bits(out[f], ref[f])]
+    log(f"[prepass] the frame on the plain prepass: fields {sorted(out)}, differing {differ}")
+    require(set(out) == set(ref) and not differ, f"prepass: frame fields differ: {differ}")
+
+    unequal = sum(not all(torch.equal(a, b) for a, b in zip(real(*c), composite._topk(*c)))
+                  for c in calls)
+    log(f"[prepass] {len(calls)} calls replayed on C2 and on _topk: {unequal} differ")
+    require(unequal == 0, f"prepass: {unequal} replayed calls differ from _topk")
+
+    big = max(calls, key=lambda c: (c[1].shape[0], c[3], c[2].stride(0) != 0))
+    n_big, k_big = big[1].shape[0], big[3]
+    ms = cuda_ms(lambda i: real(*big), C2_REPS)
+    plain_ms = cuda_ms(lambda i: composite._topk(*big), 3)
+    dev_frame = None
+    _wall, events = device_window(lambda: [real(*c) for c in calls])
+    spans = [b - a for n, a, b in events if "composite_topk_kernel" in n]
+    if spans:
+        dev_frame = sum(spans) / 1e3
+    plain_frame = cuda_ms(lambda i: [composite._topk(*c) for c in calls], 1)
+    bnd = c2_bytes(n_big, big[2], k_big) / PEAK_BYTES_PER_S * 1e3
+    bnd_frame = sum(c2_bytes(c[1].shape[0], c[2], c[3]) for c in calls) / PEAK_BYTES_PER_S * 1e3
+    dev = None if dev_frame is None else dev_frame / len(calls)
+    log(f"[prepass] C2 at the largest call ({n_big} rays, K {k_big}): {ms:.4f} ms a call "
+        f"over {C2_REPS} serialized calls (events), device {_opt_ms(dev)} a launch; _topk "
+        f"{plain_ms:.4f} ms; bound {bnd:.4f} ms (bytes).  A frame's {len(calls)} calls: "
+        f"device {_opt_ms(dev_frame)}, _topk {plain_frame:.4f} ms, bound {bnd_frame:.4f} ms")
+    return dict(launches=counts["composite_topk"], max_abs_err=0.0, ms=ms, device_ms=dev,
+                plain_ms=plain_ms, bound_ms=bnd, bound_by="bytes", library_ms=None,
+                rays=n_big, k=k_big, objects=big[0].grid.shape[0], calls=len(calls),
+                device_ms_per_frame=dev_frame, plain_ms_per_frame=plain_frame,
+                bound_ms_per_frame=bnd_frame)
 
 
 @timed_phase
@@ -3454,6 +3572,7 @@ def main():
     dda_lists_res, dda_err = phase_dda(vol, o_rand, d_rand)
     dfr = phase_dda_frames()
     mu = phase_multi()
+    c2 = phase_prepass()
     game = phase_game()
     surf = phase_surface(vol)
     march = phase_march()
@@ -3589,6 +3708,9 @@ def main():
             device_ms=None if dev is None else dev / n, plain_ms=None, bound_ms=bnd / n,
             bound_by="bytes", library_ms=None, device_ms_per_frame=dev,
             bound_ms_per_frame=bnd, traversal_calls=wf["traversal_calls"]))
+    kernels.append(dict(name="composite_topk", route="cuda",
+                        source="voxel_tracer_tpu_torch/csrc/composite.cu",
+                        replaces="voxel_tracer_tpu/ops/composite.py:98", **c2))
     inv = march["inputs"]["inverse_128 step"]
     for name, mode, line in (("diff_fwd", "fwd", 87), ("diff_bwd", "bwd", 140)):
         t = inv[mode]

@@ -325,17 +325,18 @@ def test_every_kernel_maps_to_one_label():
     D2 and D3 the differentiable march's forward and backward, D2 with its
     two templates (diff_fwd_kernel<true>, <false>: on the float4 record, on
     the plain grids) and the record's pack (diff_pack_kernel), C1 the
-    composite's two kernels (composite_local_kernel, composite_record_kernel)."""
+    composite's two kernels (composite_local_kernel, composite_record_kernel),
+    C2 its top-K prepass (composite_topk_kernel)."""
     names = _global_kernels()
-    assert len(names) == 16, names
+    assert len(names) == 17, names
     labels = []
     for name in names:
         hits = [lab for key, lab in measure.KERNEL_LABELS.items()
                 if measure.label_of(f"void {name}(int)") == lab and key == name]
         assert len(hits) == 1, (name, hits)
         labels += hits
-    assert sorted(labels) == ([f"B{i}" for i in range(1, 8)] + ["C1"] * 2 + ["D1"] * 3
-                              + ["D2"] * 3 + ["D3"])
+    assert sorted(labels) == ([f"B{i}" for i in range(1, 8)] + ["C1"] * 2 + ["C2"]
+                              + ["D1"] * 3 + ["D2"] * 3 + ["D3"])
 
 
 def test_dda_passes_sum_under_one_label():

@@ -12,9 +12,12 @@ tests/test_torch_composite_cuda.py holds against it on the card.  Here:
   analytic primitives, with rays that miss and directions with zero and
   NaN components;
 - the dispatch: CPU tensors and `composite.PLAIN` take the glue, and
-  `KERNEL_LAUNCHES` counts each traversal call as `composite_glue`;
+  `KERNEL_LAUNCHES` counts each traversal call as `composite_glue`; the
+  top-K prepass takes `kernels.topk` on every fused traversal, else the
+  plain `_topk`, and says which in its `topk` span's ``fused``;
 - the kernels' host side: its argument structures mirror
-  csrc/composite.cu field for field, and it refuses CPU tensors.
+  csrc/composite.cu field for field, and it refuses CPU tensors, naming
+  the plain version, and a K outside the prepass's 1..`TOPK_MAX`.
 """
 
 import re
@@ -149,7 +152,7 @@ def _parent_intersect_group(group, origins, dirs, max_candidates, max_steps, obj
         return _parent_trace_one(group, 0, origins, dirs, max_steps, obj_base,
                                  dda_fn=dda_fn, **dda_kw)
     k = min(max_candidates, o_count)
-    cand_t, cand_id = composite._slab_prepass_topk(group, origins, dirs, k)
+    cand_t, cand_id = composite._topk(group, origins, dirs, k)
     best = composite.HitResult.miss(n, origins.device)
     pal_flat = group.palette.reshape(-1, 3)
     for slot in range(k):
@@ -277,12 +280,13 @@ def test_cpu_and_plain_traversals_take_the_glue(site, plain, monkeypatch):
     fn, args, kw = site_args(site, sd, seed=1, n=64)
     if plain:
         fn = getattr(composite.PLAIN, fn.__name__)
-    for stage in ("to_local", "record"):
+    for stage in ("to_local", "record", "topk"):
         monkeypatch.setattr(kernels, stage, _refused)
     kernels.reset_launch_counts()
     fn(*args, **kw)
     assert kernels.KERNEL_LAUNCHES == {"composite_fused": 0, "composite_glue": 1,
-                                       "composite_local": 0, "composite_record": 0}
+                                       "composite_local": 0, "composite_record": 0,
+                                       "composite_topk": 0}
 
 
 def _refused(*_a, **_k):
@@ -301,7 +305,8 @@ def _struct_fields(name):
 
 
 @pytest.mark.parametrize("struct,args", [("LocalArgs", kernels._LocalArgs),
-                                         ("RecordArgs", kernels._RecordArgs)])
+                                         ("RecordArgs", kernels._RecordArgs),
+                                         ("TopkArgs", kernels._TopkArgs)])
 def test_kernel_arguments_mirror_the_source(struct, args):
     assert [f for f, _t in args._fields_] == _struct_fields(struct)
 
@@ -316,6 +321,77 @@ def test_kernels_refuse_cpu_tensors():
            "steps": torch.zeros(8, dtype=torch.int32)}
     with pytest.raises(ValueError, match="CUDA"):
         kernels.record(sd.groups[0], res)
+
+
+def test_topk_refuses_cpu_tensors_and_names_the_plain_version():
+    group = scene_data("stacked_first").groups[0]
+    o, d = rays(0, n=8)
+    with pytest.raises(ValueError, match="CUDA.*composite._topk"):
+        kernels.topk(group, o, d, 2)
+
+
+@pytest.mark.parametrize("k", [0, kernels.TOPK_MAX + 1])
+def test_topk_refuses_k_outside_its_bound(k):
+    """The prepass kernel holds K = 1..TOPK_MAX; any other K raises before
+    a launch, on any device, naming the plain version."""
+    group = scene_data("stacked_first").groups[0]
+    o, d = rays(0, n=8)
+    with pytest.raises(ValueError, match=f"k = {k} outside 1..{kernels.TOPK_MAX}.*_topk"):
+        kernels.topk(group, o, d, k)
+
+
+def _prepass_spans(fn):
+    from voxel_tracer_tpu_torch.utils import profiling
+    profiling.take_spans()
+    with profiling.recording():
+        out = fn()
+    return out, [r["attrs"] for r in profiling.take_spans() if r["name"] == "topk"]
+
+
+@pytest.mark.parametrize("site", ["primary", "group"])
+@pytest.mark.parametrize("plain", [False, True], ids=["default", "PLAIN"])
+def test_cpu_and_plain_prepasses_take_the_plain_topk(site, plain, monkeypatch):
+    """A stacked group's prepass on CPU tensors, or under `composite.PLAIN`,
+    is the plain `_topk`: the kernel is never called and the `topk` span
+    says ``fused`` False."""
+    sd = scene_data("stacked_first")
+    fn, args, kw = site_args(site, sd, seed=3, n=64)
+    if plain:
+        fn = getattr(composite.PLAIN, fn.__name__)
+    monkeypatch.setattr(kernels, "topk", _refused)
+    calls = []
+    real = composite._topk
+    monkeypatch.setattr(composite, "_topk", lambda *a: calls.append(a[3]) or real(*a))
+    kernels.reset_launch_counts()
+    _out, spans = _prepass_spans(lambda: fn(*args, **kw))
+    assert calls == [kw["max_candidates"]] and kernels.KERNEL_LAUNCHES["composite_topk"] == 0
+    assert spans == [{"objects": 3, "k": kw["max_candidates"], "fused": False}]
+
+
+@pytest.mark.parametrize("k", [1, 4, kernels.TOPK_MAX, kernels.TOPK_MAX + 1, 12])
+def test_fused_prepass_takes_the_kernel_at_every_k(k, monkeypatch):
+    """On a fused traversal the prepass goes to `kernels.topk` (stood in
+    for here by the plain version) whatever K is: a K above `TOPK_MAX` is
+    the kernel's to refuse, never a fall back to the plain `_topk`; the
+    span says ``fused``."""
+    group = scene_data("stacked_first").groups[0]
+    o, d = rays(6, n=64)
+    taken = []
+
+    def fake(group, origins, dirs, k):
+        taken.append(k)
+        return composite._topk(group, origins, dirs, k)
+    monkeypatch.setattr(kernels, "topk", fake)
+    out, spans = _prepass_spans(lambda: composite._slab_prepass_topk(group, o, d, k, True))
+    assert taken == [k]
+    assert spans == [{"objects": 3, "k": k, "fused": True}]
+    ref = composite._topk(group, o, d, k)
+    assert_same(out, ref, "topk")
+    assert out[0].shape == (64, k) and out[1].dtype == torch.int32
+    # fewer objects than slots: the slots no object fills keep 1e30 and 0
+    assert (out[0][:, 3:] == BIG_F32).all() and (out[1][:, 3:] == 0).all()
+    _out, spans = _prepass_spans(lambda: composite._slab_prepass_topk(group, o, d, k, False))
+    assert spans == [{"objects": 3, "k": k, "fused": False}] and taken == [k]
 
 
 @pytest.mark.parametrize("kw", [{}, {"ignore": GLASS}], ids=["primary", "scan"])

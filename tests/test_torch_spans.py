@@ -220,7 +220,8 @@ def test_kept_rays_of_candidates_in_a_group():
     recs = profiling.take_spans()
     cands = [r for r in recs if r["name"] == "candidate"]
     assert [r["attrs"]["slot"] for r in cands] == [0, 1]
-    assert any(r["name"] == "topk" and r["attrs"] == {"objects": 2, "k": 2} for r in recs)
+    assert any(r["name"] == "topk" and r["attrs"] == {"objects": 2, "k": 2, "fused": False}
+               for r in recs)
     kept = [r["attrs"]["kept"] for r in recs if r["name"] == "d1"]
     # slot 0 keeps every ray whose line meets the boxes' bounds; slot 1
     # those of them that the first box's solid voxels let through

@@ -63,7 +63,8 @@ SYNC_WARNING = "called a synchronizing CUDA operation"   # PyTorch's sync debug 
 # brick bitmap from); D2's templates (on the float4 record, on the plain
 # grids) share D2's, and so does the record's pack (the forward launches
 # it; D3 reads the same record); C1 the wavefront composite's glue around
-# D1 (its two kernels, which no TPU kernel has: XLA fuses that glue)
+# D1 (its two kernels, which no TPU kernel has: XLA fuses that glue) and C2
+# its top-K prepass
 KERNEL_LABELS = {
     "mega_camera_kernel": "B1",
     "mega_rays_kernel": "B2",
@@ -81,6 +82,7 @@ KERNEL_LABELS = {
     "diff_bwd_kernel": "D3",
     "composite_local_kernel": "C1",
     "composite_record_kernel": "C1",
+    "composite_topk_kernel": "C2",
 }
 # a kernel's symbol as the profiler prints it, e.g.
 # "void (anonymous namespace)::integrate_kernel<true>((anonymous namespace)::Params)"
@@ -162,7 +164,7 @@ def quartiles(samples) -> dict:
 
 
 def label_of(kernel_name: str):
-    """The label (B1-B7, C1, D1-D3) of a profiler kernel name, or None for
+    """The label (B1-B7, C1, C2, D1-D3) of a profiler kernel name, or None for
     glue."""
     m = _SYMBOL.search(kernel_name)
     return KERNEL_LABELS[m.group(1)] if m else None

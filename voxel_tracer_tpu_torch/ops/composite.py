@@ -19,17 +19,20 @@ plain loop on any device: the plain wavefront frame is
 
 Around each D1 call, the glue carries the rays to the volume's local
 space (`_local_rays`) and turns D1's outputs into the hit record merged
-into the running best (`_record`).  Both are the plain versions of the
-two kernels of `ops/cuda/composite.py` (`to_local`, `record`), which a
+into the running best (`_record`), and a stacked group's prepass picks
+each ray's candidates (`_topk`).  The three are the plain versions of the
+kernels of `ops/cuda/composite.py` (`to_local`, `record`, `topk`), which a
 traversal of CUDA tensors on D1 (``dda_fn`` None) launches in their place,
 with the same float program; CPU tensors and any ``dda_fn`` take the glue.
-Its `KERNEL_LAUNCHES` counts the traversal calls of each.
+Its `KERNEL_LAUNCHES` counts the traversal calls of each and the kernels'
+launches.
 
 Spans (`utils/profiling.annotate`, off by default): each traversal is an
 `intersect` span whose ``kind`` is primary, shadow, interior or scan (an
 ``ignore``d medium: glass scans and the continuation); the prepass is a
-`topk` span, and each candidate slot of `intersect_group` a `candidate`
-span that keeps the rows still in the race.
+`topk` span (``fused``: on the kernel), and each candidate slot of
+`intersect_group` a `candidate` span that keeps the rows still in the
+race.
 """
 
 from __future__ import annotations
@@ -155,15 +158,18 @@ def _stages(fused):
     return (kernels.to_local, kernels.record) if fused else (_local_rays, _record)
 
 
-def _slab_prepass_topk(group, origins, dirs, k: int):
-    """Per-ray K nearest candidate objects by slab entry t: a loop over the
-    group's objects, each bubble-inserted into the sorted K-list (a strict
-    `<`, so ties keep the earlier object)."""
-    with profiling.annotate("topk", objects=group.grid.shape[0], k=k):
-        return _topk(group, origins, dirs, k)
+def _slab_prepass_topk(group, origins, dirs, k: int, fused: bool):
+    """Per-ray K nearest candidate objects by slab entry t: `kernels.topk`
+    where the traversal is ``fused`` (which refuses a K above its
+    `TOPK_MAX`), else the plain `_topk`."""
+    with profiling.annotate("topk", objects=group.grid.shape[0], k=k, fused=fused):
+        return (kernels.topk if fused else _topk)(group, origins, dirs, k)
 
 
 def _topk(group, origins, dirs, k):
+    """The plain prepass: a loop over the group's objects, each one's slab
+    entry t bubble-inserted into the sorted K-list (a strict `<`, so ties
+    keep the earlier object)."""
     n, dev = origins.shape[0], origins.device
     gz, gy, gx = group.grid.shape[-3:]
     vsize = torch.tensor([gx, gy, gz], dtype=torch.float32, device=dev)
@@ -211,7 +217,7 @@ def _intersect_group(group, origins, dirs, max_candidates, max_steps, obj_base, 
         return record(group, res, best, oid=0, obj_base=obj_base)
 
     k = min(max_candidates, o_count)
-    cand_t, cand_id = _slab_prepass_topk(group, origins, dirs, k)
+    cand_t, cand_id = _slab_prepass_topk(group, origins, dirs, k, fused)
     race = None
     for slot in range(k):
         oid = cand_id[:, slot].long()

@@ -1,4 +1,4 @@
-"""The wavefront composite's traversal glue as two kernels: host side of
+"""The wavefront composite's traversal glue as three kernels: host side of
 `csrc/composite.cu`.
 
 Each traversal call of `ops/composite.py` (`intersect_scene`, `intersect_group`,
@@ -8,10 +8,13 @@ the hit record.  Its plain version is the tensor glue of
 `ops/composite.py` (`_to_local`, the one-volume record, the candidate slot,
 `HitResult.nearer`, `_march_interior`), about 70 eager operations a call;
 here the same float program is `to_local` (one launch) and `record` (one
-launch), with D1 between them unchanged.  `ops/composite.py` takes them
-for CUDA tensors when the traversal runs on D1 (``dda_fn`` None) and its
-glue otherwise (CPU tensors, `composite.PLAIN`); a failed build or launch
-raises.
+launch), with D1 between them unchanged.  A stacked group's top-K slab
+prepass (`composite._topk`, about 95 eager operations an object and an
+upload of the grid dims) is `topk`, one launch for every object and K up
+to `TOPK_MAX`.  `ops/composite.py` takes them for CUDA tensors when the
+traversal runs on D1 (``dda_fn`` None) and its glue otherwise (CPU
+tensors, `composite.PLAIN`); a K above `TOPK_MAX`, a failed build or a
+failed launch raises.
 
 The ray's object is one of: ``oid`` an int (every ray reads that object
 of the group), ``oid`` an (N,) int64 tensor (a candidate slot), or
@@ -20,7 +23,8 @@ read as clamp(obj - obj_base, 0, O - 1) (the interior march).
 
 `KERNEL_LAUNCHES` counts the traversal calls that took the kernels
 (`composite_fused`) and those that took the glue (`composite_glue`), and
-each kernel's launches (`composite_local`, `composite_record`).
+each kernel's launches (`composite_local`, `composite_record`,
+`composite_topk`).
 """
 
 from __future__ import annotations
@@ -32,7 +36,8 @@ import torch
 from voxel_tracer_tpu_torch.ops.cuda import _build
 
 KERNEL_LAUNCHES = {"composite_fused": 0, "composite_glue": 0, "composite_local": 0,
-                   "composite_record": 0}
+                   "composite_record": 0, "composite_topk": 0}
+TOPK_MAX = 8        # the largest K `topk` holds in registers (csrc/composite.cu)
 
 
 def reset_launch_counts():
@@ -69,6 +74,14 @@ class _RecordArgs(ctypes.Structure):
         (name, _I) for name in ("n", "n_obj", "oid_s", "obj_base", "select", "fresh")]
 
 
+class _TopkArgs(ctypes.Structure):
+    """`TopkArgs` of csrc/composite.cu, field for field."""
+
+    _fields_ = [(name, _P) for name in ("orig", "dirs", "rot", "pos", "pivot", "vpu", "t",
+                                        "ids")] + [
+        (name, _I) for name in ("n", "orig_row", "dirs_row", "n_obj", "k", "gx", "gy", "gz")]
+
+
 # D1's outputs that `record` reads and the record's fields (HitResult's
 # order), with their dtypes
 _D1_FIELDS = (("t", torch.float32), ("mat", torch.int32), ("axis", torch.int32),
@@ -84,6 +97,8 @@ def _lib():
         lib.vt_composite_local.restype = _I
         lib.vt_composite_record.argtypes = [ctypes.POINTER(_RecordArgs), _P]
         lib.vt_composite_record.restype = _I
+        lib.vt_composite_topk.argtypes = [ctypes.POINTER(_TopkArgs), _P]
+        lib.vt_composite_topk.restype = _I
         lib.vt_error_string.argtypes = [_I]
         lib.vt_error_string.restype = ctypes.c_char_p
         lib._vt_typed = True
@@ -113,6 +128,15 @@ def _rows(name, x, n, dev):
         x = x.contiguous()
     _checked(name, x[:1], torch.float32, (min(n, 1), 3), dev)
     return x, x.stride(0)
+
+
+def _tables(group, dev):
+    """The group's (rot, pos, pivot, vpu) as the kernels read them."""
+    o_count = group.rot.shape[0]
+    return (_checked("rot", group.rot.contiguous(), torch.float32, (o_count, 3, 3), dev),
+            _checked("pos", group.pos.contiguous(), torch.float32, (o_count, 3), dev),
+            _checked("pivot", group.pivot.contiguous(), torch.float32, (o_count, 3), dev),
+            _checked("vpu", group.vpu.contiguous(), torch.float32, (o_count,), dev))
 
 
 def _object_source(oid, obj, n, dev):
@@ -150,10 +174,7 @@ def to_local(group, origins, dirs, oid=0, obj=None, obj_base: int = 0):
     o_count = group.rot.shape[0]
     origins, o_row = _rows("origins", origins, n, dev)
     dirs, d_row = _rows("dirs", dirs, n, dev)
-    rot = _checked("rot", group.rot.contiguous(), torch.float32, (o_count, 3, 3), dev)
-    pos = _checked("pos", group.pos.contiguous(), torch.float32, (o_count, 3), dev)
-    pivot = _checked("pivot", group.pivot.contiguous(), torch.float32, (o_count, 3), dev)
-    vpu = _checked("vpu", group.vpu.contiguous(), torch.float32, (o_count,), dev)
+    rot, pos, pivot, vpu = _tables(group, dev)
     oid_s, oid_ray, obj = _object_source(oid, obj, n, dev)
     if not 0 <= oid_s < o_count:
         raise ValueError(f"object {oid_s} of a group of {o_count}")
@@ -217,3 +238,27 @@ def record(group, res, best=None, oid=0, obj=None, obj_base: int = 0, live=None,
                            n, o_count, oid_s, int(obj_base), int(select), int(fresh))
         _launch("vt_composite_record", args, dev, "composite_record")
     return best
+
+
+def topk(group, origins, dirs, k: int):
+    """`composite._topk`: each ray's ``k`` nearest objects of ``group`` by
+    slab entry t, as (N, k) float32 t (1e30 where no object fills a slot)
+    and (N, k) int32 ids (0 there), nearest first, a tie to the earlier
+    object.  ``k`` runs from 1 to `TOPK_MAX`."""
+    if not 1 <= k <= TOPK_MAX:
+        raise ValueError(f"k = {k} outside 1..{TOPK_MAX}: the plain version is composite._topk")
+    dev = origins.device
+    _on_cuda(dev, "_topk")
+    n = origins.shape[0]
+    origins, o_row = _rows("origins", origins, n, dev)
+    dirs, d_row = _rows("dirs", dirs, n, dev)
+    rot, pos, pivot, vpu = _tables(group, dev)
+    gz, gy, gx = group.grid.shape[-3:]
+    t = torch.empty((n, k), dtype=torch.float32, device=dev)
+    ids = torch.empty((n, k), dtype=torch.int32, device=dev)
+    if n:
+        args = _TopkArgs(origins.data_ptr(), dirs.data_ptr(), rot.data_ptr(), pos.data_ptr(),
+                         pivot.data_ptr(), vpu.data_ptr(), t.data_ptr(), ids.data_ptr(),
+                         n, o_row, d_row, rot.shape[0], k, gx, gy, gz)
+        _launch("vt_composite_topk", args, dev, "composite_topk")
+    return t, ids
