@@ -14,7 +14,10 @@ on the CPU.  Tolerances:
   the port's eager glue is not, so a one-ulp difference can flip a
   shadow), with the same depth, material and hit-count checks;
 - the port with `compact=True` equals itself with `compact=False`, field
-  for field.
+  for field: on the material frame, on its lower half as one block of
+  rays with a ray offset (as `parallel.sharding.sharded_render` hands a
+  shard to `render_rays`), and on the scene with its glass made diffuse,
+  where the glass stage is skipped at every bounce.
 """
 
 import dataclasses
@@ -32,6 +35,8 @@ from voxel_tracer_tpu.renderer import Renderer as JRenderer
 
 from voxel_tracer_tpu_torch import RenderConfig, Renderer
 from voxel_tracer_tpu_torch.convert import camera_from_jax, scene_from_jax
+from voxel_tracer_tpu_torch.models.camera import rays_for_image
+from voxel_tracer_tpu_torch.renderer import render_rays
 
 torch.set_num_threads(1)
 
@@ -43,12 +48,13 @@ DEPTH_ATOL = 5e-3
 HIT_COUNT_BUDGET = 4
 
 
-def material_scene():
-    """tests/test_whitted_mega.py's scene, as (JAX volume, JAX scene)."""
+def material_scene(box_mat=3):
+    """tests/test_whitted_mega.py's scene, as (JAX volume, JAX scene);
+    ``box_mat`` is the hollow box's material (3: glass)."""
     n = 32
     g = np.zeros((n, n, n), np.uint8)
     g[:, 0:3, :] = 30                      # diffuse floor (z, y, x); y up
-    g[10:24, 3:17, 4:16] = 3               # hollow glass box, walls 2 voxels
+    g[10:24, 3:17, 4:16] = box_mat         # hollow glass box, walls 2 voxels
     g[12:22, 5:15, 6:14] = 0
     g[14:20, 3:11, 8:12] = 40              # diffuse pillar inside the glass
     g[:, 3:20, 26:28] = 12                 # mirror slab (row 1) at +x side
@@ -124,11 +130,36 @@ def test_render_full_matches_jax(full_frames):
                         "steps", "material"}
 
 
-def test_compact_equals_uncompacted(setup, full_frames):
+@pytest.fixture(scope="module")
+def no_glass_scene():
+    """The material scene with its glass box made diffuse: no row hits
+    glass at any bounce."""
+    vol, scene = material_scene(box_mat=20)
+    rows = (vol.grid[vol.grid > 0].astype(int) - 1) // 8
+    assert not (rows == 0).any()
+    return scene_from_jax(scene.data(), device="cpu")
+
+
+@pytest.mark.parametrize("case", ["materials", "ray_block", "no_glass"])
+def test_compact_equals_uncompacted(setup, full_frames, no_glass_scene, case):
     _jsd, _jcam, sd, cam = setup
-    _ref, out = full_frames
-    comp = Renderer(_config("full", RenderConfig, compact=True),
-                    device="cpu").render(sd, cam, frame=FRAME)
+    if case == "no_glass":
+        sd = no_glass_scene
+
+    def render(compact):
+        cfg = _config("full", RenderConfig, compact=compact)
+        if case != "ray_block":
+            return Renderer(cfg, device="cpu").render(sd, cam, frame=FRAME)
+        # the frame's lower half, as a ray shard of `sharded_render`
+        rows = H // 2
+        offset = rows * W
+        o, d = rays_for_image(cam, W, H, device="cpu")
+        return render_rays(sd, o[offset:], d[offset:], FRAME,
+                           config=dataclasses.replace(cfg, height=rows),
+                           ray_offset=offset)
+
+    out = full_frames[1] if case == "materials" else render(False)
+    comp = render(True)
     assert comp.keys() == out.keys()
     for k in out:
         assert torch.equal(comp[k], out[k]), k

@@ -1,5 +1,5 @@
 """The program's spans and counters (`utils/profiling.annotate`,
-`take_spans`, `counters`, D1's `dda_rays` / `dda_tables`) on the CPU:
+`take_spans`, D1's `dda_rays` / `dda_tables`) on the CPU:
 a frame is bit-equal with spans on and off, the span tree, nothing
 recorded while off, the rays handed to D1 and the share of them whose
 result is kept, and the spans' times against the profiler's events."""
@@ -268,10 +268,3 @@ def test_annotate_decorates_and_the_buffer_is_bounded(monkeypatch):
     recs = profiling.take_spans()
     assert [r["name"] for r in recs] == ["shade"] * 3 and recs.dropped == 2
     assert profiling.take_spans() == [] and profiling.take_spans().dropped == 0
-
-
-def test_counters_read_every_kernel_module():
-    c = profiling.counters()
-    assert set(c) == set(profiling.COUNTED)
-    assert set(c["dda"]) == {"dda", "dda_rays", "dda_tables"}
-    assert c["dda"] is not d1.KERNEL_LAUNCHES and c["dda"] == d1.KERNEL_LAUNCHES

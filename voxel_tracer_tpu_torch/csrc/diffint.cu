@@ -42,9 +42,8 @@
 // Warp-level aggregation of the reductions (__match_any_sync, shuffles,
 // one reduction per voxel and warp) made the backward slower on every
 // scene tried, even where most warp-steps share a voxel.  The forward runs
-// faster in blocks of 128 threads, the backward in blocks of 256.
-// tools/torch_diffint_trials.py measures these choices; PERF.md holds the
-// numbers.
+// faster in blocks of 128 threads, the backward in blocks of 256 (PERF.md
+// holds the kernels' times).
 //
 // Rounding: compiled with --fmad=false and no fast math (expf, IEEE
 // division); every float operation is the one the plain PyTorch version

@@ -280,6 +280,20 @@ def eval_glass_wavefront(scene, cur_o, cur_d, cur_hit, is_glass, config,
     return cont_o, cont_d, cont_w, emitted, alb_acc, irr_acc
 
 
+def _over_rows(compact, mask, fn, args, fill):
+    """Run the stage ``fn(live, idx, *args)`` over the rows of ``mask``.
+
+    With ``compact`` this is `ops/compact.masked_apply`: ``fn`` sees the
+    gathered rows alone (``live`` all True, ``idx`` their indices) and
+    ``fill()`` gives each output where ``mask`` is False.  Otherwise
+    ``fn`` runs on every row with ``mask`` as its live mask and ``idx``
+    None, and ``fill`` is not called.
+    """
+    if compact:
+        return masked_apply(mask, fn, args, fill())
+    return fn(mask, None, *args)
+
+
 @profiling.annotate("shade")
 def shade_full(scene, origins, dirs, hit, frame, config, isect=composite,
                ray_offset: int = 0):
@@ -291,36 +305,29 @@ def shade_full(scene, origins, dirs, hit, frame, config, isect=composite,
     on both throughputs; diffuse rays terminate with sphere-light + sun +
     ambient irradiance, their shadow rays seeded per (ray, frame, bounce).
 
-    With ``config.compact`` the whole body runs on the rays that hit
-    anything, and each heavy stage inside (diffuse light queries, the
-    glass sub-loop, the continuation trace) on its own live subset
-    (`ops/compact.masked_apply`); noise and seed streams key on each row's
-    original ray index, so the results equal the uncompacted call's.
-    ``ray_offset`` is the global index of row 0: a ray shard
-    (`parallel.sharding.sharded_render`) draws the noise and seeds of the
-    unsharded frame's rays.
+    Compaction is decided here and in `_over_rows` alone.  With
+    ``config.compact`` the bounce loop runs on the rays that hit anything,
+    and each heavy stage inside (diffuse light queries, the glass
+    sub-loop, the continuation trace) on its own live rows, gathered by
+    `ops/compact.masked_apply`; without it every stage runs on every row
+    and masks its results.  Each row carries its original ray index,
+    ``ray_offset`` plus its row (a ray shard, `parallel.sharding.
+    sharded_render`, draws the noise and seeds of the unsharded frame's
+    rays); noise and seeds key on it, so the results equal the
+    uncompacted call's bit for bit.
     Returns (albedo, irradiance), each (N, 3).
     """
     n = origins.shape[0]
-    full_idx = torch.arange(n, device=origins.device) + ray_offset
-    if not getattr(config, "compact", False):
-        return _shade_full_body(scene, origins, dirs, hit, frame, config,
-                                isect, full_idx)
+    compact = config.compact
+    ray_idx = torch.arange(n, device=origins.device) + ray_offset
 
-    mask0 = hit.t < BIG_F32
+    def body(live, _idx, o, d, rid, *h):
+        return _bounces(scene, o, d, composite.HitResult(*h), live, rid, frame,
+                        config, isect, compact)
 
-    def fn(lv, idx, o_g, d_g, t_g, nrm_g, mat_g, alb_g, obj_g):
-        hit_g = composite.HitResult(
-            t=torch.where(lv, t_g, BIG_F32), mat=mat_g, normal=nrm_g,
-            albedo=alb_g, steps=torch.zeros_like(mat_g), obj=obj_g)
-        return _shade_full_body(scene, o_g, d_g, hit_g, frame, config,
-                                isect, idx + ray_offset)
-
-    zeros3 = torch.zeros((n, 3), dtype=torch.float32, device=origins.device)
-    return masked_apply(
-        mask0, fn,
-        (origins, dirs, hit.t, hit.normal, hit.mat, hit.albedo, hit.obj),
-        (zeros3, zeros3))
+    return _over_rows(
+        compact, hit.t < BIG_F32, body, (origins, dirs, ray_idx, *hit),
+        lambda: (torch.zeros((n, 3), dtype=torch.float32, device=origins.device),) * 2)
 
 
 def _seed(idx, frame, bounce):
@@ -331,28 +338,42 @@ def _seed(idx, frame, bounce):
     return s ^ ((0x85EBCA77 * (bounce + 1)) & _U32)
 
 
-def _shade_full_body(scene, origins, dirs, hit, frame, config, isect,
-                     ray_idx):
-    """shade_full's bounce loop at any wavefront size; ``ray_idx`` maps
-    each row to its original ray index, so noise and seed streams are
-    invariant under compaction."""
+def _bounces(scene, origins, dirs, hit, live, ray_idx, frame, config, isect,
+             compact):
+    """shade_full's bounce loop over its rows; ``live`` marks the rows that
+    hit, ``ray_idx`` holds each row's original ray index."""
     n = origins.shape[0]
     dev = origins.device
-    use_compact = bool(getattr(config, "compact", False))
-
-    def noise3_at(idx):
-        return sample_3d(idx % _TEX_SIZE, idx // _TEX_SIZE, frame)
-
-    def noise2_at(idx):
-        return sample_2d(idx % _TEX_SIZE, idx // _TEX_SIZE, frame)
-
-    if not use_compact:
-        # full-wavefront samples, computed once for every bounce
-        noise3 = noise3_at(ray_idx)
-        noise2 = noise2_at(ray_idx)
+    # samples computed once for every bounce
+    noise3 = sample_3d(ray_idx % _TEX_SIZE, ray_idx // _TEX_SIZE, frame)
+    noise2 = sample_2d(ray_idx % _TEX_SIZE, ray_idx // _TEX_SIZE, frame)
 
     def zeros(*shape, dtype=torch.float32):
         return torch.zeros(shape, dtype=dtype, device=dev)
+
+    def _diffuse_fn(_lv, _idx, p_g, nrm_g, n3_g, n2_g, rid_g):
+        # called within the loop below: `bounce` is the current bounce
+        return diffuse_irradiance(scene, p_g, nrm_g, n3_g, n2_g, config,
+                                  shadow_seed=_seed(rid_g, frame, bounce), isect=isect)
+
+    def _glass_fn(lv, _idx, o_g, d_g, t_g, nrm_g, mat_g, alb_g, obj_g):
+        # rows that are not glass trace from far away: their slab tests
+        # reject them at once (gathered rows are all glass)
+        o_g = torch.where(lv[:, None], o_g, 1e6)
+        d_g = torch.where(lv[:, None], d_g, _vec([0.0, 0.0, 1.0], d_g))
+        ghit = composite.HitResult(
+            t=t_g, mat=mat_g, normal=nrm_g, albedo=alb_g,
+            steps=torch.zeros_like(mat_g), obj=obj_g)
+        return eval_glass_wavefront(scene, o_g, d_g, ghit, lv, config, isect=isect)
+
+    def _continue_fn(lv, _idx, o_g, d_g, ign_g, ta_g, ti_g):
+        # the continuation's hit record, and the sky terms of the rows
+        # that miss
+        h = isect.intersect_scene(scene, o_g, d_g, config.max_candidates,
+                                  config.max_steps, ignore=ign_g)
+        sky_g = sample_sky(scene.sky, d_g)
+        m_g = (lv & (h.t >= BIG_F32))[:, None]
+        return (*h, torch.where(m_g, ta_g * sky_g, 0.0), torch.where(m_g, ti_g, 0.0))
 
     albedo_out = zeros(n, 3)
     irr_out = zeros(n, 3)
@@ -360,7 +381,6 @@ def _shade_full_body(scene, origins, dirs, hit, frame, config, isect,
     thr_i = torch.ones((n, 3), dtype=torch.float32, device=dev)  # irradiance side
     cur_o, cur_d = origins, dirs
     cur_hit = hit
-    live = hit.t < BIG_F32
 
     for bounce in range(config.max_bounces):
         with profiling.annotate("shade.bounce", bounce=bounce):
@@ -374,19 +394,9 @@ def _shade_full_body(scene, origins, dirs, hit, frame, config, isect,
 
             # --- diffuse terminate ---------------------------------------------
             with profiling.annotate("shade.diffuse", bounce=bounce, keep=is_diffuse):
-                if use_compact:
-                    def _diff_fn(lv, idx, p_g, nrm_g, b=bounce):
-                        gi = ray_idx[idx]
-                        return diffuse_irradiance(
-                            scene, p_g, nrm_g, noise3_at(gi), noise2_at(gi), config,
-                            shadow_seed=_seed(gi, frame, b), isect=isect, live=lv)
-
-                    irr = masked_apply(is_diffuse, _diff_fn, (p, cur_hit.normal),
-                                       zeros(n, 3))
-                else:
-                    irr = diffuse_irradiance(scene, p, cur_hit.normal, noise3, noise2,
-                                             config, shadow_seed=_seed(ray_idx, frame, bounce),
-                                             isect=isect)
+                irr = _over_rows(compact, is_diffuse, _diffuse_fn,
+                                 (p, cur_hit.normal, noise3, noise2, ray_idx),
+                                 lambda: zeros(n, 3))
             albedo_out = albedo_out + torch.where(
                 is_diffuse[:, None], thr_a * cur_hit.albedo, 0.0)
             irr_out = irr_out + torch.where(is_diffuse[:, None], thr_i * irr, 0.0)
@@ -409,26 +419,13 @@ def _shade_full_body(scene, origins, dirs, hit, frame, config, isect,
                 ones3 = torch.ones((n, 3), dtype=torch.float32, device=dev)
                 no_glass = (cur_o, cur_d, ones3, zeros(n, dtype=torch.bool),
                             zeros(n, 3), zeros(n, 3))
+                glass = no_glass
                 if bool(is_glass.any()):
-                    def _glass_fn(lv, _idx, o_g, d_g, t_g, nrm_g, mat_g, alb_g, obj_g):
-                        # rows that are not glass trace from far away: their slab
-                        # tests reject them at once
-                        o_g = torch.where(lv[:, None], o_g, 1e6)
-                        d_g = torch.where(lv[:, None], d_g, _vec([0.0, 0.0, 1.0], d_g))
-                        ghit = composite.HitResult(
-                            t=t_g, mat=mat_g, normal=nrm_g, albedo=alb_g,
-                            steps=torch.zeros_like(mat_g), obj=obj_g)
-                        return eval_glass_wavefront(scene, o_g, d_g, ghit, lv, config,
-                                                    isect=isect)
-
-                    g_args = (cur_o, cur_d, cur_hit.t, cur_hit.normal, cur_hit.mat,
-                              cur_hit.albedo, cur_hit.obj)
-                    if use_compact:
-                        glass = masked_apply(is_glass, _glass_fn, g_args, no_glass)
-                    else:
-                        glass = _glass_fn(is_glass, None, *g_args)
-                else:
-                    glass = no_glass
+                    glass = _over_rows(
+                        compact, is_glass, _glass_fn,
+                        (cur_o, cur_d, cur_hit.t, cur_hit.normal, cur_hit.mat,
+                         cur_hit.albedo, cur_hit.obj),
+                        lambda: no_glass)
             cont_o, cont_d, cont_w, emitted, g_alb, g_irr = glass
 
             # terminal contributions from internal reflections past the 1st exit
@@ -447,36 +444,14 @@ def _shade_full_body(scene, origins, dirs, hit, frame, config, isect,
             ign = torch.where(is_glass, cur_hit.mat, 0)
             cur_o, cur_d = next_o, next_d
             with profiling.annotate("shade.continue", bounce=bounce, keep=live):
-                if use_compact:
-                    def _cont_fn(lv, _idx, o_g, d_g, ign_g, ta_g, ti_g):
-                        h = isect.intersect_scene(
-                            scene, o_g, d_g, config.max_candidates,
-                            config.max_steps, ignore=ign_g)
-                        sky_g = sample_sky(scene.sky, d_g)
-                        m_g = (lv & (h.t >= BIG_F32))[:, None]
-                        return (h.t, h.mat, h.normal, h.albedo, h.steps, h.obj,
-                                torch.where(m_g, ta_g * sky_g, 0.0),
-                                torch.where(m_g, ti_g, 0.0))
-
-                    miss = composite.HitResult.miss(n, dev)
-                    h_t, h_mat, h_nrm, h_alb, h_st, h_obj, sky_alb, sky_irr = masked_apply(
-                        live, _cont_fn, (cur_o, cur_d, ign, thr_a, thr_i),
-                        tuple(miss) + (zeros(n, 3), zeros(n, 3)))
-                    cur_hit = composite.HitResult(
-                        t=h_t, mat=h_mat, normal=h_nrm, albedo=h_alb, steps=h_st,
-                        obj=h_obj)
-                    albedo_out = albedo_out + sky_alb
-                    irr_out = irr_out + sky_irr
-                    live = live & (cur_hit.t < BIG_F32)
-                else:
-                    cur_hit = isect.intersect_scene(
-                        scene, cur_o, cur_d, config.max_candidates,
-                        config.max_steps, ignore=ign)
-                    sky = sample_sky(scene.sky, cur_d)
-                    missed = cur_hit.t >= BIG_F32
-                    albedo_out = albedo_out + torch.where(
-                        (live & missed)[:, None], thr_a * sky, 0.0)
-                    irr_out = irr_out + torch.where((live & missed)[:, None], thr_i, 0.0)
-                    live = live & ~missed
+                # without compaction the rows that are not live are traced
+                # too, and their records build the next bounce's rays
+                *rec, sky_alb, sky_irr = _over_rows(
+                    compact, live, _continue_fn, (cur_o, cur_d, ign, thr_a, thr_i),
+                    lambda: (*composite.HitResult.miss(n, dev), zeros(n, 3), zeros(n, 3)))
+                cur_hit = composite.HitResult(*rec)
+                albedo_out = albedo_out + sky_alb
+                irr_out = irr_out + sky_irr
+                live = live & (cur_hit.t < BIG_F32)
 
     return albedo_out, irr_out

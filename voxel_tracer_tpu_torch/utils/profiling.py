@@ -18,14 +18,13 @@ program's span: off by default, and with `spans(True)` (or inside
 `recording()`) each span records its name, id, parent, frame and start
 and end on the clock of the device trace, and stands in the trace as a
 `record_function` range when a profiler window is open.  `take_spans()`
-hands the records out; `counters()` reads the kernel modules' counters.
+hands the records out.
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
-import importlib
 import math
 import os
 import tempfile
@@ -70,12 +69,10 @@ def trace(logdir: str = None, host_tracer_level: int = 2):
 
 
 # ---------------------------------------------------------------------------
-# Spans and counters
+# Spans
 # ---------------------------------------------------------------------------
 
 MAX_SPANS = 1 << 18     # records kept between two `take_spans`; later ones are dropped
-# the modules whose KERNEL_LAUNCHES dicts `counters` reads
-COUNTED = ("coherent", "dda", "diff", "diffint", "indep", "mega")
 
 _on = False
 _records = []           # spans in the order they opened
@@ -243,13 +240,6 @@ def take_spans():
         for rec, v in zip(recs, torch.stack([r["attrs"]["kept"] for r in recs]).tolist()):
             rec["attrs"]["kept"] = v
     return out
-
-
-def counters():
-    """Each kernel module's KERNEL_LAUNCHES, copied: {module: {name: count}}
-    (launches, and D1's `dda_rays` and `dda_tables`)."""
-    return {m: dict(importlib.import_module(f"voxel_tracer_tpu_torch.ops.cuda.{m}")
-                    .KERNEL_LAUNCHES) for m in COUNTED}
 
 
 def _procedural_crate(n: int = 32, mat: int = 30) -> np.ndarray:
