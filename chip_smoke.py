@@ -61,12 +61,14 @@ them:
   wavefront `Renderer`, a drone moved by `with_transforms`, O(1) table
   edits against a repack, frame time and host syncs; then game_demo's
   loop for 14 frames (the laser must carve voxels);
-- the top-K prepass C2 (`composite_topk_kernel`) on its main path: the
-  wavefront `Renderer` (full shading, 8 bounces) on the default scene at
-  1280x720, the four drones one stacked group: one C2 launch for each
-  prepass call, the frame bit-equal to the frame on the plain prepass
-  (`composite._topk`), and the frame's prepass calls replayed on C2 and
-  on `_topk`, equal bit for bit and timed;
+- the top-K prepass C2 (`composite_topk_kernel`) and D1's candidate race
+  (`dda_kernel<SMEM>(RaceArgs)`) on their main path: the wavefront
+  `Renderer` (full shading, 8 bounces) on the default scene at 1280x720,
+  the four drones one stacked group: one C2 launch and one race launch
+  for each prepass call, the frame bit-equal to the frame on the plain
+  prepass (`composite._topk`) and the plain race (the slot loop), the
+  frame's prepass calls replayed on C2 and on `_topk`, and its race calls
+  on the race and on the slot loop, equal bit for bit and timed;
 - the differentiable surface path: `render_lambert_surface_mega` on the
   bench scene at 512x512 (B1 + B2 under autograd) against the same
   computation on the plain versions and against the wavefront
@@ -151,7 +153,11 @@ frame's rays (`bound_ms` a launch, `bound_ms_per_frame`; no `ms` or
 and its numbers at that frame's largest prepass call (`rays`, `k`,
 `objects`), and over the frame's calls (`device_ms_per_frame`,
 `plain_ms_per_frame`, `bound_ms_per_frame`; the bytes bound: 24 B read
-and 8 K written a ray);
+and 8 K written a ray); the race (`dda_race`) the same on that frame's
+race calls, at the call that walks the most slots, its `plain_ms` the
+slot loop's, its bound D1's over the slots it walks (each a D1 ray with
+an object index and a per-ray vpu, and its steps), and the frame's slot
+rows, walked rows and walked steps;
 D2 and D3 (`diff_fwd`, `diff_bwd`) their numbers on inverse_128's step,
 each [march] input under `inputs` (D2 also `with_pack_device_ms` and
 `grids`, D2 on the plain grids; D3 `whole_device_ms`, its glue included;
@@ -2551,6 +2557,7 @@ def phase_multi(device="cuda", size=(MU_W, MU_H), small=(MU_SMALL_W, MU_SMALL_H)
 
 PP_W, PP_H = 1280, 720                 # the wavefront frame's default size
 C2_REPS = 50                           # serialized launches timed at the largest call
+RACE_REPS = 20                         # the race's, at its largest call
 
 
 def _same_bits(a, b):
@@ -2567,67 +2574,148 @@ def c2_bytes(n, dirs, k):
     return n * (12 + (0 if dirs.stride(0) == 0 else 12) + 8 * k)
 
 
+def race_slots(group, origins, dirs, cand_t, cand_id, best=None, obj_base=0,
+               max_steps=None, record=None, **kw):
+    """`ops/cuda/dda.race`'s signature on its plain version, the slot loop
+    (`composite._race_slots`) with C1 and D1 around each slot; ``record``
+    in place of C1's record stage."""
+    from voxel_tracer_tpu_torch.ops import composite, dda
+    from voxel_tracer_tpu_torch.ops.cuda import composite as ck
+    from voxel_tracer_tpu_torch.ops.cuda import dda as d1
+    return composite._race_slots(group, origins, dirs, cand_t, cand_id, best, obj_base,
+                                 dda.MAX_STEPS if max_steps is None else max_steps,
+                                 ck.to_local, record or ck.record, d1.intersect_volume_local, kw)
+
+
+def _cloned(x):
+    return x.clone() if isinstance(x, torch.Tensor) else x
+
+
+def _dirs_copy(dirs):
+    """A copy of a direction array that keeps a broadcast row broadcast."""
+    return dirs[:1].clone().expand_as(dirs) if dirs.stride(0) == 0 else dirs.clone()
+
+
+def race_replay(fn, call):
+    """``fn`` (the race or `race_slots`) on a recorded race call, merging
+    into a fresh copy of the call's running record."""
+    from voxel_tracer_tpu_torch.ops.composite import HitResult
+    group, o, d, ct, ci, best, kw = call
+    best = None if best is None else HitResult(*(x.clone() for x in best))
+    return fn(group, o, d, ct, ci, best, **kw)
+
+
+def race_walk_bound(call):
+    """(rows, steps, (least ms, what bounds it)) of the slots a race call
+    walks: the live rows of each slot of the slot loop and their steps, on
+    D1's conventions (`_dda_bound`, each walked row a D1 ray with an
+    object index and a per-ray vpu), and the slot loop's record."""
+    from voxel_tracer_tpu_torch.ops.cuda import composite as ck
+    walked = [0, 0]
+
+    def counting(group, res, best=None, live=None, **kw):
+        walked[0] += int(live.sum())
+        walked[1] += int(res["steps"][live].sum())
+        return ck.record(group, res, best, live=live, **kw)
+
+    out = race_replay(lambda *a, **kw: race_slots(*a, record=counting, **kw), call)
+    group, kw = call[0], call[6]
+    return walked[0], walked[1], _dda_bound(walked[0], walked[1], dict(kw, oid=True), True,
+                                           group.grid, group.brick_occ), out
+
+
 @timed_phase
 def phase_prepass(device="cuda", size=(PP_W, PP_H)):
-    """[prepass] C2 on its main path: the wavefront Renderer (RenderConfig's
-    defaults: full shading, 8 bounces) on the default scene, whose four
-    drones are one stacked group, at 1280x720, launch counts at 0 just
-    before the frame: one C2 launch for each of the frame's prepass calls
-    and no traversal on the glue; the frame equal field for field, bit for
-    bit, to the same frame on the plain prepass (`composite._topk`); then
-    the frame's prepass calls replayed on C2 and on `_topk`, equal bit for
-    bit, timed, and bounded by the bytes each must move (`c2_bytes`).
-    Returns C2's numbers for the `kernels` line."""
+    """[prepass] C2 and D1's candidate race on their main path: the
+    wavefront Renderer (RenderConfig's defaults: full shading, 8 bounces)
+    on the default scene, whose four drones are one stacked group, at
+    1280x720, launch counts at 0 just before the frame: one C2 launch and
+    one launch of D1's candidate race for each of the frame's prepass
+    calls and no traversal on the glue; the frame equal field for field,
+    bit for bit, to the same frame on the plain prepass (`composite._topk`)
+    and the plain race (the slot loop, `race_slots`); then the frame's
+    prepass calls replayed on C2 and on `_topk`, and its race calls on the
+    race and on the slot loop, equal bit for bit, timed, and bounded: C2
+    by the bytes each call must move (`c2_bytes`), the race by the slots
+    it walks (`race_walk_bound`).  Returns C2's numbers and the race's for
+    the `kernels` line."""
     from voxel_tracer_tpu_torch.ops import composite
     from voxel_tracer_tpu_torch.ops.cuda import composite as ck
+    from voxel_tracer_tpu_torch.ops.cuda import dda as d1
     from voxel_tracer_tpu_torch.renderer import RenderConfig, Renderer
     _vols, scene = multi_scene()
     sd = scene.data(device)
     w, h = size
     cfg = RenderConfig(width=w, height=h)
     cam = multi_camera(0.0, w, h)
-    real, prepass = ck.topk, composite._slab_prepass_topk
-    calls, n_prepass = [], [0]
+    real, prepass, real_race = ck.topk, composite._slab_prepass_topk, d1.race
+    calls, races, n_prepass = [], [], [0]
 
     def recorded(group, origins, dirs, k):
-        d = dirs[:1].clone().expand_as(dirs) if dirs.stride(0) == 0 else dirs.clone()
-        calls.append((group, origins.clone(), d, k))
+        calls.append((group, origins.clone(), _dirs_copy(dirs), k))
         return real(group, origins, dirs, k)
+
+    def recorded_race(group, origins, dirs, cand_t, cand_id, best=None, **kw):
+        races.append((group, origins.clone(), _dirs_copy(dirs), cand_t.clone(),
+                      cand_id.clone(), None if best is None else [x.clone() for x in best],
+                      {k: _cloned(v) for k, v in kw.items()}))
+        return real_race(group, origins, dirs, cand_t, cand_id, best, **kw)
 
     def counted(*args):
         n_prepass[0] += 1
         return prepass(*args)
 
     ck.reset_launch_counts()
-    ck.topk, composite._slab_prepass_topk = recorded, counted
+    d1.reset_launch_counts()
+    ck.topk, composite._slab_prepass_topk, d1.race = recorded, counted, recorded_race
     try:
         out = Renderer(cfg, device=device).render(sd, cam, frame=0)
         sync(device)
     finally:
-        ck.topk, composite._slab_prepass_topk = real, prepass
-    counts = dict(ck.KERNEL_LAUNCHES)
+        ck.topk, composite._slab_prepass_topk, d1.race = real, prepass, real_race
+    counts, d1_counts = dict(ck.KERNEL_LAUNCHES), dict(d1.KERNEL_LAUNCHES)
     shapes = sorted({(c[1].shape[0], c[3], c[0].grid.shape[0], c[2].stride(0) == 0)
                      for c in calls})
     log(f"[prepass] default scene {w}x{h}, {cfg.max_bounces} bounces: {n_prepass[0]} prepass "
-        f"calls, counts {counts}; calls (rays, K, objects, broadcast direction): {shapes}")
+        f"calls, counts {counts}, D1 {d1_counts}; calls (rays, K, objects, broadcast "
+        f"direction): {shapes}")
     require(counts["composite_topk"] == n_prepass[0] == len(calls) > 0,
             f"prepass: {counts['composite_topk']} C2 launches for {n_prepass[0]} calls")
     require(counts["composite_glue"] == 0, f"prepass: traversals on the glue: {counts}")
+    require(d1_counts["dda_race"] == n_prepass[0] == len(races),
+            f"prepass: {d1_counts['dda_race']} candidate races ({len(races)} calls) for "
+            f"{n_prepass[0]} prepass calls")
 
-    ck.topk = lambda group, o, d, k: composite._topk(group, o, d, k)
+    d1.reset_launch_counts()
+    ck.topk, d1.race = (lambda group, o, d, k: composite._topk(group, o, d, k)), race_slots
     try:
         ref = Renderer(cfg, device=device).render(sd, cam, frame=0)
     finally:
-        ck.topk = real
+        ck.topk, d1.race = real, real_race
+    ref_d1 = dict(d1.KERNEL_LAUNCHES)
     differ = [f for f in out if isinstance(out[f], torch.Tensor)
               and not _same_bits(out[f], ref[f])]
-    log(f"[prepass] the frame on the plain prepass: fields {sorted(out)}, differing {differ}")
+    log(f"[prepass] the frame on the plain prepass and the slot loop: fields {sorted(out)}, "
+        f"differing {differ}; D1 {ref_d1}")
+    require(ref_d1["dda_race"] == 0 and ref_d1["dda_rays"] == d1_counts["dda_rays"],
+            f"prepass: the slot loop's frame launched races or handed D1 other rays: "
+            f"{ref_d1} against {d1_counts}")
     require(set(out) == set(ref) and not differ, f"prepass: frame fields differ: {differ}")
 
     unequal = sum(not all(torch.equal(a, b) for a, b in zip(real(*c), composite._topk(*c)))
                   for c in calls)
     log(f"[prepass] {len(calls)} calls replayed on C2 and on _topk: {unequal} differ")
     require(unequal == 0, f"prepass: {unequal} replayed calls differ from _topk")
+    walks, race_unequal = [], 0
+    for c in races:
+        rows, steps, bnd_call, plain = race_walk_bound(c)
+        walks.append((rows, steps, bnd_call))
+        race_unequal += not all(_same_bits(a, b)
+                                for a, b in zip(race_replay(real_race, c), plain))
+    log(f"[prepass] {len(races)} race calls replayed on the race and on the slot loop: "
+        f"{race_unequal} differ")
+    require(race_unequal == 0, f"prepass: {race_unequal} replayed race calls differ from "
+            f"the slot loop")
 
     big = max(calls, key=lambda c: (c[1].shape[0], c[3], c[2].stride(0) != 0))
     n_big, k_big = big[1].shape[0], big[3]
@@ -2646,11 +2734,47 @@ def phase_prepass(device="cuda", size=(PP_W, PP_H)):
         f"over {C2_REPS} serialized calls (events), device {_opt_ms(dev)} a launch; _topk "
         f"{plain_ms:.4f} ms; bound {bnd:.4f} ms (bytes).  A frame's {len(calls)} calls: "
         f"device {_opt_ms(dev_frame)}, _topk {plain_frame:.4f} ms, bound {bnd_frame:.4f} ms")
-    return dict(launches=counts["composite_topk"], max_abs_err=0.0, ms=ms, device_ms=dev,
-                plain_ms=plain_ms, bound_ms=bnd, bound_by="bytes", library_ms=None,
-                rays=n_big, k=k_big, objects=big[0].grid.shape[0], calls=len(calls),
-                device_ms_per_frame=dev_frame, plain_ms_per_frame=plain_frame,
-                bound_ms_per_frame=bnd_frame)
+    c2 = dict(launches=counts["composite_topk"], max_abs_err=0.0, ms=ms, device_ms=dev,
+              plain_ms=plain_ms, bound_ms=bnd, bound_by="bytes", library_ms=None,
+              rays=n_big, k=k_big, objects=big[0].grid.shape[0], calls=len(calls),
+              device_ms_per_frame=dev_frame, plain_ms_per_frame=plain_frame,
+              bound_ms_per_frame=bnd_frame)
+
+    # the race: its largest call (the most rows walked) and the frame's calls
+    ib = max(range(len(races)), key=lambda i: walks[i][0])
+    rb = races[ib]
+    # one running record, merged into again by each timed launch
+    fixed = None if rb[5] is None else composite.HitResult(*(x.clone() for x in rb[5]))
+    r_ms = cuda_ms(lambda i: real_race(*rb[:5], fixed, **rb[6]), RACE_REPS)
+    r_plain = cuda_ms(lambda i: race_replay(race_slots, rb), 3)
+    r_dev_frame = None
+    _wall, events = device_window(lambda: [race_replay(real_race, c) for c in races])
+    spans = [b - a for n, a, b in events if "RaceArgs" in n]
+    if spans:
+        r_dev_frame = sum(spans) / 1e3
+    r_plain_frame = cuda_ms(lambda i: [race_replay(race_slots, c) for c in races], 1)
+    r_bnd, r_by = walks[ib][2]
+    r_bnd_frame = sum(wk[2][0] for wk in walks)
+    by = {b: sum(wk[2][0] for wk in walks if wk[2][1] == b) for b in ("bytes", "operations")}
+    rows = sum(c[3].numel() for c in races)
+    walked, steps = sum(wk[0] for wk in walks), sum(wk[1] for wk in walks)
+    r_dev = None if r_dev_frame is None else r_dev_frame / len(races)
+    share = None if not r_dev_frame else 100.0 * r_bnd_frame / r_dev_frame
+    log(f"[prepass] the race at its largest call ({rb[1].shape[0]} rays, K {rb[3].shape[1]}, "
+        f"{walks[ib][0]} slots walked): {r_ms:.4f} ms a call over {RACE_REPS} serialized "
+        f"calls (events); slot loop {r_plain:.4f} ms; bound {r_bnd:.4f} ms ({r_by}).  A "
+        f"frame's {len(races)} calls: {rows} slot rows, {walked} walked in {steps} steps; "
+        f"device {_opt_ms(r_dev_frame)} ({_opt_ms(r_dev)} a launch), slot loop "
+        f"{r_plain_frame:.4f} ms, bound {r_bnd_frame:.4f} ms over the walked slots, "
+        f"{'not measured' if share is None else f'{share:.1f} %'} of it")
+    race = dict(launches=d1_counts["dda_race"], max_abs_err=0.0, ms=r_ms, device_ms=r_dev,
+                plain_ms=r_plain, bound_ms=r_bnd, bound_by=r_by, library_ms=None,
+                rays=rb[1].shape[0], k=rb[3].shape[1], objects=rb[0].grid.shape[0],
+                calls=len(races), slot_rows_per_frame=rows, walked_rows_per_frame=walked,
+                walked_steps_per_frame=steps, device_ms_per_frame=r_dev_frame,
+                plain_ms_per_frame=r_plain_frame, bound_ms_per_frame=r_bnd_frame,
+                bound_by_per_frame=max(by, key=by.get))
+    return c2, race
 
 
 @timed_phase
@@ -3572,7 +3696,7 @@ def main():
     dda_lists_res, dda_err = phase_dda(vol, o_rand, d_rand)
     dfr = phase_dda_frames()
     mu = phase_multi()
-    c2 = phase_prepass()
+    c2, race = phase_prepass()
     game = phase_game()
     surf = phase_surface(vol)
     march = phase_march()
@@ -3711,6 +3835,8 @@ def main():
     kernels.append(dict(name="composite_topk", route="cuda",
                         source="voxel_tracer_tpu_torch/csrc/composite.cu",
                         replaces="voxel_tracer_tpu/ops/composite.py:98", **c2))
+    kernels.append(dict(name="dda_race", route="cuda", source="voxel_tracer_tpu_torch/csrc/dda.cu",
+                        replaces="voxel_tracer_tpu/ops/composite.py:144", **race))
     inv = march["inputs"]["inverse_128 step"]
     for name, mode, line in (("diff_fwd", "fwd", 87), ("diff_bwd", "bwd", 140)):
         t = inv[mode]

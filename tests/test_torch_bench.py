@@ -321,14 +321,15 @@ def _global_kernels():
 def test_every_kernel_maps_to_one_label():
     """Each kernel of csrc/*.cu has one label: B1-B7 the Pallas kernels'
     counterparts, D1 the DDA's passes (dda_kernel<true>, dda_kernel<false>:
-    the brick bitmap from shared or from global memory; dda_exhaust_kernel),
-    D2 and D3 the differentiable march's forward and backward, D2 with its
+    the brick bitmap from shared or from global memory; dda_exhaust_kernel)
+    and its candidate race (dda_kernel<true>, <false> again: the overload on
+    RaceArgs), D2 and D3 the differentiable march's forward and backward, D2 with its
     two templates (diff_fwd_kernel<true>, <false>: on the float4 record, on
     the plain grids) and the record's pack (diff_pack_kernel), C1 the
     composite's two kernels (composite_local_kernel, composite_record_kernel),
     C2 its top-K prepass (composite_topk_kernel)."""
     names = _global_kernels()
-    assert len(names) == 17, names
+    assert len(names) == 19, names
     labels = []
     for name in names:
         hits = [lab for key, lab in measure.KERNEL_LABELS.items()
@@ -336,7 +337,7 @@ def test_every_kernel_maps_to_one_label():
         assert len(hits) == 1, (name, hits)
         labels += hits
     assert sorted(labels) == ([f"B{i}" for i in range(1, 8)] + ["C1"] * 2 + ["C2"]
-                              + ["D1"] * 3 + ["D2"] * 3 + ["D3"])
+                              + ["D1"] * 5 + ["D2"] * 3 + ["D3"])
 
 
 def test_dda_passes_sum_under_one_label():
@@ -355,6 +356,20 @@ def test_dda_passes_sum_under_one_label():
     assert s["glue_ms"] == pytest.approx(0.02)
     assert measure.label_of("void my_dda_kernel<true>(int)") is None
     assert measure.label_of("void dda_kernel<true>2(int)") is None
+
+
+@pytest.mark.parametrize("args", ["DdaArgs", "RaceArgs"])
+@pytest.mark.parametrize("smem", ["true", "false"])
+def test_both_entries_of_d1_fall_under_its_label(smem, args):
+    """Pass 1 and the candidate race, the two overloads of `dda_kernel` as
+    the profiler names them, are D1's time here and in the benchmark's
+    split (`port_bench/profile.py`); a glue symbol ending in the name is
+    not."""
+    from port_bench import profile
+
+    name = f"void (anonymous namespace)::dda_kernel<{smem}>({args})"
+    assert measure.label_of(name) == profile.label_of(name) == "D1"
+    assert profile.label_of(f"void my_dda_kernel<{smem}>({args})") is None
 
 
 def test_suite_imports_no_jax():

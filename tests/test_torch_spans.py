@@ -231,6 +231,36 @@ def test_kept_rays_of_candidates_in_a_group():
     assert kept == [in_box, in_box - hits]
 
 
+def test_kept_rays_count_walked_slots_over_nested_masks():
+    """`count_kept(n, walked=...)`, as D1's candidate race counts its rows:
+    each row's walked slots summed over the rows that every open mask of n
+    rows keeps, over every row where only masks of another length are
+    open, and nothing recorded with spans off."""
+    n = 10
+    walked = torch.tensor([0, 1, 2, 3, 4, 0, 1, 2, 3, 4], dtype=torch.int32)
+    outer = torch.arange(n) % 2 == 0               # rows 0, 2, 4, 6, 8
+    inner = torch.arange(n) < 7                    # rows 0 .. 6
+    gathered = torch.ones(4, dtype=torch.bool)     # a stage of another length
+    with profiling.annotate("shade.diffuse", keep=outer):
+        with profiling.annotate("d1", rays=4 * n):
+            profiling.count_kept(n, walked=walked)
+    assert profiling.take_spans() == []
+    with profiling.recording():
+        with profiling.annotate("shade.diffuse", keep=outer):
+            with profiling.annotate("intersect", keep=inner):
+                with profiling.annotate("d1", rays=4 * n):
+                    profiling.count_kept(n, walked=walked)
+            with profiling.annotate("d1", rays=4 * n):
+                profiling.count_kept(n, walked=walked)
+        with profiling.annotate("shade.glass", keep=gathered):
+            with profiling.annotate("d1", rays=4 * n):
+                profiling.count_kept(n, walked=walked)
+        with profiling.annotate("d1", rays=4 * n):
+            profiling.count_kept(n)
+    kept = [r["attrs"]["kept"] for r in profiling.take_spans() if r["name"] == "d1"]
+    assert kept == [0 + 2 + 4 + 1, 0 + 2 + 4 + 1 + 3, 20, n]
+
+
 def test_span_times_match_the_profilers_events():
     """Each span's start and end lie within 1 ms of its record_function
     event in a CPU profiler window (both on CLOCK_REALTIME)."""

@@ -542,18 +542,31 @@ SMEM_FLAG = [
      "  const uint32_t w = SMEM ? sbits[g >> 5] : __ldg(&a.bits[g >> 5]);",
      "__device__ __forceinline__ bool brick_bit(const DdaArgs& a, bool smem, int64_t g) {\n"
      "  const uint32_t w = smem ? sbits[g >> 5] : __ldg(&a.bits[g >> 5]);"),
-    ("template <bool SMEM>\n__device__ int walk_ray(const DdaArgs& a, int i) {",
-     "__device__ int walk_ray(const DdaArgs& a, bool smem, int i) {"),
+    ("template <bool SMEM, class Out>\n"
+     "__device__ __forceinline__ int walk_ray(const DdaArgs& a, int i, const Ray& ray, "
+     "Out& out) {",
+     "template <class Out>\n"
+     "__device__ __forceinline__ int walk_ray(const DdaArgs& a, bool smem, int i, "
+     "const Ray& ray, Out& out) {"),
     ("brick_bit<SMEM>(a, bbase + b)", "brick_bit(a, smem, bbase + b)"),
     ("template <bool SMEM>\n"
      "__global__ void __launch_bounds__(THREADS) dda_kernel(const DdaArgs a) {\n"
      "  if (SMEM) {",
      "__global__ void __launch_bounds__(THREADS) dda_kernel(const DdaArgs a, bool smem) {\n"
      "  if (smem) {"),
-    ("walk_ray<SMEM>(a, i)", "walk_ray(a, smem, i)"),
+    ("template <bool SMEM>\n"
+     "__global__ void __launch_bounds__(THREADS) dda_kernel(const RaceArgs r) {\n"
+     "  if (SMEM) {",
+     "__global__ void __launch_bounds__(THREADS) dda_kernel(const RaceArgs r, bool smem) {\n"
+     "  if (smem) {"),
+    ("walk_ray<SMEM>(a, i, ", "walk_ray(a, smem, i, "),
+    ("walk_ray<SMEM>(r.d, i, ", "walk_ray(r.d, smem, i, "),
     ("  if (smem)\n    dda_kernel<true><<<blocks, THREADS, (size_t)a.nwords * 4, stream>>>(a);\n"
      "  else\n    dda_kernel<false><<<blocks, THREADS, 0, stream>>>(a);",
-     "  dda_kernel<<<blocks, THREADS, smem ? (size_t)a.nwords * 4 : 0, stream>>>(a, smem);")]
+     "  dda_kernel<<<blocks, THREADS, smem ? (size_t)a.nwords * 4 : 0, stream>>>(a, smem);"),
+    ("  if (smem)\n    dda_kernel<true><<<blocks, THREADS, (size_t)a.nwords * 4, stream>>>(r);\n"
+     "  else\n    dda_kernel<false><<<blocks, THREADS, 0, stream>>>(r);",
+     "  dda_kernel<<<blocks, THREADS, smem ? (size_t)a.nwords * 4 : 0, stream>>>(r, smem);")]
 # -- int32_materials: a solid voxel's id read from the int32 grid (the
 # branch the kernel takes for ids outside [0, 255]); every trial input
 # passes an int32 grid

@@ -43,6 +43,10 @@
 //   the earlier object.  Writes _topk's (N, K) t and int32 ids (1e30 and 0
 //   in slots no object filled).
 //
+// The local ray (to_local) and the normal and albedo (normal_albedo) are
+// the device functions of composite.cuh, which D1's candidate race
+// (csrc/dda.cu) runs too.
+//
 // Rounding: compiled with --fmad=false (no contraction), IEEE division and
 // sqrt, so every output equals the plain version's on the card bit for
 // bit (stochastic shadows key on the hit cell: one ulp of o_l can flip a
@@ -65,6 +69,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "composite.cuh"   // to_local, normal_albedo, TOPK_MAX
 
 // ops/cuda/composite.py mirrors the three layouts (_LocalArgs, _RecordArgs,
 // _TopkArgs).
@@ -139,37 +145,12 @@ namespace {
 
 constexpr float BIG_F32 = 1e30f;   // math3d.BIG_F32
 constexpr int THREADS = 256;
-constexpr int TOPK_MAX = 8;        // ops/cuda/composite.TOPK_MAX
 
 __device__ __forceinline__ int object_of(const int64_t* oid_ray, const int32_t* obj,
                                          int oid_s, int obj_base, int n_obj, int i) {
   if (oid_ray != nullptr) return (int)oid_ray[i];
   if (obj != nullptr) return min(max(obj[i] - obj_base, 0), n_obj - 1);
   return oid_s;
-}
-
-// R^T v with each component's products summed left to right
-// (math3d._mat3_t_apply); r is row-major 3x3.
-__device__ __forceinline__ void mat3_t_apply(const float* r, float v0, float v1, float v2,
-                                             float* out) {
-#pragma unroll
-  for (int k = 0; k < 3; ++k)
-    out[k] = r[k] * v0 + r[3 + k] * v1 + r[6 + k] * v2;
-}
-
-// The ray at po / pd in the local space of object o of the group's tables:
-// o_l = R^T (p - pos) + pivot, d_l = R^T d (composite._to_local).
-__device__ __forceinline__ void to_local(const float* rot, const float* pos,
-                                         const float* pivot, const float* po, const float* pd,
-                                         int o, float* lo, float* ld) {
-  const float* r = rot + 9 * o;
-  const float* p = pos + 3 * o;
-  const float* pv = pivot + 3 * o;
-  float q[3];
-  mat3_t_apply(r, po[0] - p[0], po[1] - p[1], po[2] - p[2], q);
-  mat3_t_apply(r, pd[0], pd[1], pd[2], ld);
-#pragma unroll
-  for (int k = 0; k < 3; ++k) lo[k] = q[k] + pv[k];
 }
 
 __global__ void composite_local_kernel(const LocalArgs a) {
@@ -255,16 +236,9 @@ __global__ void composite_record_kernel(const RecordArgs a) {
   const int o = object_of(a.oid_ray, a.obj, a.oid_s, a.obj_base, a.n_obj, i);
   const float t = a.t[i];
   const int m = a.mat[i];
-  // dda.normal_from_axis: -sign_k * (column `axis` of rot), normalised
   const int ax = min(max(a.axis[i], 0), 2);   // D1 writes 0..2
-  const float* r = a.rot + 9 * o;
-  const float s = -a.step_sign[3 * i + ax];
-  const float n0 = s * r[ax], n1 = s * r[3 + ax], n2 = s * r[6 + ax];
-  const float len = sqrtf((n0 * n0 + n2 * n2) + n1 * n1);
-  const float den = isnan(len) ? len : fmaxf(len, 1e-20f);
-  float nv[3] = {n0 / den, n1 / den, n2 / den};
-  const float* alb = a.palette + 3 * (256 * o + min(max(m, 0), 255));
-  float av[3] = {alb[0], alb[1], alb[2]};
+  float nv[3], av[3];
+  normal_albedo(a.rot, a.palette, o, ax, -a.step_sign[3 * i + ax], m, nv, av);
 
   if (a.select) {
     const bool sel = a.obj[i] >= a.obj_base && a.obj[i] < a.obj_base + a.n_obj;

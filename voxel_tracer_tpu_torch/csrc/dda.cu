@@ -79,11 +79,25 @@
 // branch that commits a step on the axis the reference's comparisons
 // chose (vv.cpp:176-202).
 //
+// A second entry, the candidate race of a stacked group (vt_dda_race):
+// the K candidate passes of ops/composite.py over the top-K prepass's
+// slots, each a full-width launch of pass 1 between a C1 to_local and a
+// C1 record launch, and the merge after them, as one launch.  One thread
+// walks, one after another, only its ray's live slots, each carried to
+// its object's local space by csrc/composite.cuh's to_local; the walk is
+// pass 1's (walk_ray takes the ray in registers and hands its outputs to
+// a sink: pass 1's rows, or the race's registers), so the race equals the
+// K passes bit for bit.  It is an overload of dda_kernel, so the profiler
+// counts its time as D1's: it walks the very traversals D1's roofline
+// charges.
+//
 // Launchers are extern "C", run on the caller's stream, allocate nothing,
 // and return cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "composite.cuh"   // the race's to_local, normal_albedo, TOPK_MAX
 
 // The launch arguments; ops/cuda/dda.py mirrors the layout (_Args).  Outside
 // the anonymous namespace: vt_dda takes it, and a parameter type of internal
@@ -126,6 +140,35 @@ struct DdaArgs {
   int max_steps;
   int shadow;
   float vpu;
+};
+
+// The candidate race's arguments; ops/cuda/dda.py mirrors the layout
+// (_RaceArgs).  D1's tables, modes (ignore, seed, shadow) and budget come
+// in ``d``, whose ray, vpu, oid, medium and output pointers are unused.
+struct RaceArgs {
+  DdaArgs d;
+  const float* orig;          // (N, 3) world origins, row stride orig_row
+  const float* dirs;          // (N, 3) world directions, row stride dirs_row
+  const float* rot;           // (O, 3, 3) the group's rotations
+  const float* pos;           // (O, 3)
+  const float* pivot;         // (O, 3)
+  const float* vpu;           // (O,)
+  const float* palette;       // (O, 256, 3)
+  const float* cand_t;        // (N, K) the prepass's slab entry t, nearest first
+  const int32_t* cand_id;     // (N, K) the prepass's objects
+  float* rt;                  // the running record, (N,) unless noted; read
+  int32_t* rmat;              // unless fresh
+  float* rnormal;             // (N, 3)
+  float* ralbedo;             // (N, 3)
+  int32_t* rsteps;
+  int32_t* robj;
+  int32_t* walked;            // (N,) slots walked, or null
+  int n;
+  int k;                      // 1..TOPK_MAX
+  int orig_row;               // 3, or 0 (one vector broadcast to every ray)
+  int dirs_row;
+  int obj_base;
+  int fresh;                  // 1: the running record is the miss record
 };
 
 namespace {
@@ -205,18 +248,79 @@ __device__ __forceinline__ bool brick_bit(const DdaArgs& a, int64_t g) {
   return (w >> (g & 31)) & 1u;
 }
 
-// Walks ray i to its end; writes every output but the batch rule's and
-// returns the transitions made.  One transition is one iteration of the
-// JAX loop: entering an occupied brick, a fine test (a hit or a step), or
-// a brick step (an empty brick's, or a fine exit's in the same iteration).
-template <bool SMEM>
-__device__ int walk_ray(const DdaArgs& a, int i) {
-  const float ox = __ldg(&a.orig[3 * i]), oy = __ldg(&a.orig[3 * i + 1]),
-              oz = __ldg(&a.orig[3 * i + 2]);
-  const float dx = __ldg(&a.dirs[3 * i]), dy = __ldg(&a.dirs[3 * i + 1]),
-              dz = __ldg(&a.dirs[3 * i + 2]);
-  const float vpu =
-      a.vpu_ray != nullptr ? __ldg(&a.vpu_ray[(size_t)i * a.vpu_stride]) : a.vpu;
+// One ray as the walk takes it, in registers: its local origin and
+// direction, its vpu and its object of the stacked grids, oid[i] where
+// oid is set (read where the walk first needs it: read with the ray, it
+// costs pass 1 two registers), else obj.
+struct Ray {
+  float ox, oy, oz, dx, dy, dz;
+  float vpu;
+  const int64_t* oid;
+  int64_t obj;
+};
+
+// Pass 1's ray i: read from D1's inputs.
+__device__ __forceinline__ Ray ray_at(const DdaArgs& a, int i) {
+  Ray r;
+  r.ox = __ldg(&a.orig[3 * i]);
+  r.oy = __ldg(&a.orig[3 * i + 1]);
+  r.oz = __ldg(&a.orig[3 * i + 2]);
+  r.dx = __ldg(&a.dirs[3 * i]);
+  r.dy = __ldg(&a.dirs[3 * i + 1]);
+  r.dz = __ldg(&a.dirs[3 * i + 2]);
+  r.vpu = a.vpu_ray != nullptr ? __ldg(&a.vpu_ray[(size_t)i * a.vpu_stride]) : a.vpu;
+  r.oid = a.oid;
+  r.obj = 0;
+  return r;
+}
+
+// Where pass 1 puts a walk: D1's output rows.
+struct RowOut {
+  const DdaArgs& a;
+  int i;
+  __device__ __forceinline__ void slab(float tmin, float tmax, int entry_axis, bool valid,
+                                       bool px, bool py, bool pz) const {
+    a.slab_tmin[i] = tmin;
+    a.slab_tmax[i] = tmax;
+    a.entry_axis[i] = entry_axis;
+    a.valid[i] = valid;
+    a.step_sign[3 * i] = px ? 1.0f : -1.0f;
+    a.step_sign[3 * i + 1] = py ? 1.0f : -1.0f;
+    a.step_sign[3 * i + 2] = pz ? 1.0f : -1.0f;
+  }
+  __device__ __forceinline__ void end(float t, int mat, int axis, int steps,
+                                      bool resolved) const {
+    a.t[i] = t;
+    a.mat[i] = mat;
+    a.axis[i] = axis;
+    a.steps[i] = steps;
+    a.resolved[i] = resolved;
+  }
+};
+
+// Where the race puts a walk: registers, of the outputs it reads.
+struct RegOut {
+  float t;
+  int mat, axis, steps;
+  __device__ __forceinline__ void slab(float, float, int, bool, bool, bool, bool) const {}
+  __device__ __forceinline__ void end(float t_, int mat_, int axis_, int steps_, bool) {
+    t = t_;
+    mat = mat_;
+    axis = axis_;
+    steps = steps_;
+  }
+};
+
+// Walks ``ray`` (row i of the per-ray modes) to its end; hands its outputs
+// to ``out`` (all but the batch rule's) and returns the transitions made.
+// One transition is one iteration of the JAX loop: entering an occupied
+// brick, a fine test (a hit or a step), or a brick step (an empty
+// brick's, or a fine exit's in the same iteration).
+template <bool SMEM, class Out>
+__device__ __forceinline__ int walk_ray(const DdaArgs& a, int i, const Ray& ray, Out& out) {
+  const float ox = ray.ox, oy = ray.oy, oz = ray.oz;
+  const float dx = ray.dx, dy = ray.dy, dz = ray.dz;
+  const float vpu = ray.vpu;
 
   // ---- slab test --------------------------------------------------------
   float tmin = 0.0f, tmax = 0.0f;
@@ -243,16 +347,11 @@ __device__ int walk_ray(const DdaArgs& a, int i) {
   cell_setup(fmaf(dy, tmin, oy) * bpu, py, ry, a.by - 1, bcy, bty);
   cell_setup(fmaf(dz, tmin, oz) * bpu, pz, rz, a.bz - 1, bcz, btz);
 
-  a.slab_tmin[i] = tmin;
-  a.slab_tmax[i] = tmax;
-  a.entry_axis[i] = entry_axis;
-  a.valid[i] = valid;
-  a.step_sign[3 * i] = px ? 1.0f : -1.0f;
-  a.step_sign[3 * i + 1] = py ? 1.0f : -1.0f;
-  a.step_sign[3 * i + 2] = pz ? 1.0f : -1.0f;
+  out.slab(tmin, tmax, entry_axis, valid, px, py, pz);
 
   // ---- per-ray modes ----------------------------------------------------
-  const int64_t obj = a.oid != nullptr ? (int64_t)__ldg((const long long*)&a.oid[i]) : 0;
+  const int64_t obj =
+      ray.oid != nullptr ? (int64_t)__ldg((const long long*)&ray.oid[i]) : ray.obj;
   const int64_t bbase = obj * ((int64_t)a.bz * a.by * a.bx);   // the object's first brick
   const uint32_t* occw = a.occw + bbase * 16;
   const uint8_t* matb = a.matb + bbase * 512;
@@ -398,14 +497,11 @@ __device__ int walk_ray(const DdaArgs& a, int i) {
   }
 
   const bool hit = mode == MODE_HIT;
-  a.t[i] = hit ? hit_t : BIG_F32;
-  a.mat[i] = hit ? hit_mat : 0;
-  // entry-voxel hits keep the slab entry axis (vv.cpp:159)
-  a.axis[i] = hit_entry ? entry_axis : axis;
-  a.steps[i] = steps;
-  // a ray still walking, or stopped on the budget, is unresolved whether
-  // or not the batch rule marks it
-  a.resolved[i] = !(mode == MODE_BRICK || mode == MODE_FINE);
+  // entry-voxel hits keep the slab entry axis (vv.cpp:159); a ray still
+  // walking, or stopped on the budget, is unresolved whether or not the
+  // batch rule marks it
+  out.end(hit ? hit_t : BIG_F32, hit ? hit_mat : 0, hit_entry ? entry_axis : axis, steps,
+          !(mode == MODE_BRICK || mode == MODE_FINE));
   if (a.pend != nullptr)
     a.pend[i] = (pending && med_on) ? c * 4 + aw_axis(btx, bty, btz) : -1;
   return c;
@@ -421,7 +517,11 @@ __global__ void __launch_bounds__(THREADS) dda_kernel(const DdaArgs a) {
     __syncthreads();
   }
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int c = i < a.n ? walk_ray<SMEM>(a, i) : 0;
+  int c = 0;
+  if (i < a.n) {
+    RowOut out{a, i};
+    c = walk_ray<SMEM>(a, i, ray_at(a, i), out);
+  }
   if (a.maxc != nullptr) {
     const int m = __reduce_max_sync(0xffffffffu, c);
     if ((threadIdx.x & 31) == 0 && m > 0) atomicMax(a.maxc, m);
@@ -441,6 +541,75 @@ __global__ void __launch_bounds__(THREADS) dda_exhaust_kernel(const DdaArgs a) {
     a.t[i] = a.slab_tmax[i];
     a.mat[i] = 0;
     a.axis[i] = p & 3;
+  }
+}
+
+// The candidate race of a stacked group: ops/composite._race_slots' K
+// passes (each a C1 to_local launch, pass 1 over every row and a C1
+// record launch with the slot's live mask) and its final
+// HitResult.nearer, one ray a thread.  The race starts from the miss
+// record; slot s is live iff its slab entry t beats 1e30 and the race's
+// t so far; a live slot's ray goes to its object's local space
+// (to_local), is walked, and is folded into the race as
+// composite_record_kernel folds a live row (a strict win takes it, steps
+// add); a dead slot is not walked and adds nothing.  The winner's normal
+// and albedo are normal_albedo's, computed once at the end.  Candidate
+// rays carry no medium, so the batch rule changes no output and each ray
+// is walked alone.  The race is then merged into the running record in
+// place (a strict win, steps add) or written fresh.
+template <bool SMEM>
+__global__ void __launch_bounds__(THREADS) dda_kernel(const RaceArgs r) {
+  if (SMEM) {
+    for (int k = threadIdx.x; k < r.d.nwords; k += THREADS) sbits[k] = __ldg(&r.d.bits[k]);
+    __syncthreads();
+  }
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= r.n) return;
+  const float* po = r.orig + (size_t)r.orig_row * i;
+  const float* pd = r.dirs + (size_t)r.dirs_row * i;
+  const float wo[3] = {po[0], po[1], po[2]};
+  const float wd[3] = {pd[0], pd[1], pd[2]};
+  float race_t = BIG_F32;
+  int race_steps = 0, walked = 0;
+  int win = -1, win_mat = 0, win_axis = 0;   // the winner's object (-1: none)
+  float win_s = 0.0f;                        // its -step_sign on win_axis
+  for (int s = 0; s < r.k; ++s) {
+    const float ct = __ldg(&r.cand_t[(size_t)r.k * i + s]);
+    if (!(ct < BIG_F32 && ct < race_t)) continue;   // race_t is 1e30 before a hit
+    const int o = __ldg(&r.cand_id[(size_t)r.k * i + s]);
+    float lo[3], ld[3];
+    to_local(r.rot, r.pos, r.pivot, wo, wd, o, lo, ld);
+    const Ray ray{lo[0], lo[1], lo[2], ld[0], ld[1], ld[2], __ldg(&r.vpu[o]), nullptr, o};
+    RegOut h;
+    walk_ray<SMEM>(r.d, i, ray, h);
+    ++walked;
+    race_steps += h.steps;
+    if (h.t < race_t) {                      // a miss (1e30) never wins
+      const int ax = min(max(h.axis, 0), 2);
+      const float d = ax == 0 ? ld[0] : (ax == 1 ? ld[1] : ld[2]);
+      race_t = h.t;
+      win = o;
+      win_mat = h.mat;
+      win_axis = ax;
+      win_s = signbit(d) ? 1.0f : -1.0f;
+    }
+  }
+  if (r.walked != nullptr) r.walked[i] = walked;
+  float nv[3] = {0.0f, 0.0f, 0.0f}, av[3] = {0.0f, 0.0f, 0.0f};
+  if (win >= 0) normal_albedo(r.rot, r.palette, win, win_axis, win_s, win_mat, nv, av);
+  if (!r.fresh) {
+    r.rsteps[i] += race_steps;
+    if (!(race_t < r.rt[i])) return;
+  } else {
+    r.rsteps[i] = race_steps;
+  }
+  r.rt[i] = race_t;
+  r.rmat[i] = win_mat;
+  r.robj[i] = win >= 0 ? r.obj_base + win : -1;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    r.rnormal[3 * i + k] = nv[k];
+    r.ralbedo[3 * i + k] = av[k];
   }
 }
 
@@ -466,6 +635,21 @@ extern "C" int vt_dda(const DdaArgs* args, cudaStream_t stream) {
     if (e != cudaSuccess) return (int)e;
     dda_exhaust_kernel<<<blocks, THREADS, 0, stream>>>(a);
   }
+  return (int)cudaGetLastError();
+}
+
+// One candidate race, on ``stream``: the bitmap in shared memory as pass 1
+// stages it.
+extern "C" int vt_dda_race(const RaceArgs* args, cudaStream_t stream) {
+  const RaceArgs r = *args;
+  const DdaArgs& a = r.d;
+  if (r.k < 1 || r.k > TOPK_MAX) return (int)cudaErrorInvalidValue;
+  const int blocks = (r.n + THREADS - 1) / THREADS;
+  const bool smem = !a.global_bits && a.nwords <= SMEM_BITMAP_MAX_WORDS;
+  if (smem)
+    dda_kernel<true><<<blocks, THREADS, (size_t)a.nwords * 4, stream>>>(r);
+  else
+    dda_kernel<false><<<blocks, THREADS, 0, stream>>>(r);
   return (int)cudaGetLastError();
 }
 

@@ -24,6 +24,9 @@ each ray's candidates (`_topk`).  The three are the plain versions of the
 kernels of `ops/cuda/composite.py` (`to_local`, `record`, `topk`), which a
 traversal of CUDA tensors on D1 (``dda_fn`` None) launches in their place,
 with the same float program; CPU tensors and any ``dda_fn`` take the glue.
+There a stacked group's candidate slots and their merge (`_race_slots`)
+are one launch of D1's race entry (`ops/cuda/dda.race`), which walks
+only each ray's live candidates.
 Its `KERNEL_LAUNCHES` counts the traversal calls of each and the kernels'
 launches.
 
@@ -31,8 +34,9 @@ Spans (`utils/profiling.annotate`, off by default): each traversal is an
 `intersect` span whose ``kind`` is primary, shadow, interior or scan (an
 ``ignore``d medium: glass scans and the continuation); the prepass is a
 `topk` span (``fused``: on the kernel), and each candidate slot of
-`intersect_group` a `candidate` span that keeps the rows still in the
-race.
+`intersect_group`'s plain race (`_race_slots`) a `candidate` span that
+keeps the rows still in the race; on the kernels the race is one `d1`
+span.
 """
 
 from __future__ import annotations
@@ -206,7 +210,9 @@ def _intersect_group(group, origins, dirs, max_candidates, max_steps, obj_base, 
                      fused, dda_fn, dda_kw) -> HitResult:
     """`intersect_group` merged into ``best`` (None: a miss record; the
     kernels merge in place).  A candidate race keeps its own record, since
-    its early out compares with the group's best alone."""
+    its early out compares with the group's best alone: on D1's race entry
+    (one launch) where the traversal is ``fused``, else as K passes
+    (`_race_slots`)."""
     to_local, record = _stages(fused)
     d1 = dda_fn or dda_kernel.intersect_volume_local
     o_count = group.grid.shape[0]
@@ -218,8 +224,21 @@ def _intersect_group(group, origins, dirs, max_candidates, max_steps, obj_base, 
 
     k = min(max_candidates, o_count)
     cand_t, cand_id = _slab_prepass_topk(group, origins, dirs, k, fused)
+    if fused:
+        return dda_kernel.race(group, origins, dirs, cand_t, cand_id, best, obj_base=obj_base,
+                               max_steps=max_steps, **dda_kw)
+    return _race_slots(group, origins, dirs, cand_t, cand_id, best, obj_base, max_steps,
+                       to_local, record, d1, dda_kw)
+
+
+def _race_slots(group, origins, dirs, cand_t, cand_id, best, obj_base, max_steps, to_local,
+                record, d1, dda_kw) -> HitResult:
+    """The candidate race as K passes, one a slot, each tracing every row
+    and keeping the rows whose candidate can still win: the plain version
+    of `ops/cuda/dda.race`, on the stages ``to_local`` / ``record`` and the
+    DDA ``d1``.  Merged into ``best`` (None: a miss record)."""
     race = None
-    for slot in range(k):
+    for slot in range(cand_t.shape[1]):
         oid = cand_id[:, slot].long()
         live = cand_t[:, slot] < BIG_F32
         # early out: a candidate can't beat an existing nearer hit

@@ -194,6 +194,20 @@ def to_local(group, origins, dirs, oid=0, obj=None, obj_base: int = 0):
     return o_l, d_l, vpu_ray, oid_out
 
 
+def record_out(best, n, dev):
+    """The record a kernel merges into, as it reads it: ``best`` checked,
+    or, for None, a new `composite.HitResult` the kernel writes fresh."""
+    from voxel_tracer_tpu_torch.ops.composite import HitResult
+
+    shapes = [(n, 3) if name in ("normal", "albedo") else (n,) for name, _d in _RECORD_FIELDS]
+    if best is None:
+        return HitResult(*(torch.empty(shape, dtype=dtype, device=dev)
+                           for shape, (_name, dtype) in zip(shapes, _RECORD_FIELDS)))
+    for shape, (name, dtype), x in zip(shapes, _RECORD_FIELDS, best):
+        _checked(f"best.{name}", x, dtype, shape, dev)
+    return best
+
+
 def record(group, res, best=None, oid=0, obj=None, obj_base: int = 0, live=None,
            select: bool = False):
     """D1's outputs ``res`` against ``group`` as a `composite.HitResult`,
@@ -204,8 +218,6 @@ def record(group, res, best=None, oid=0, obj=None, obj_base: int = 0, live=None,
     candidate slot's with ``live``), then `HitResult.nearer`.  Select: the interior
     march's merge, rows whose ``obj`` lies in the group taking D1's raw
     outputs and their ``obj``."""
-    from voxel_tracer_tpu_torch.ops.composite import HitResult
-
     t = res["t"]
     dev = t.device
     _on_cuda(dev, "_record")
@@ -224,13 +236,7 @@ def record(group, res, best=None, oid=0, obj=None, obj_base: int = 0, live=None,
     if live is not None:
         _checked("live", live, torch.bool, (n,), dev)
     fresh = best is None
-    shapes = [(n, 3) if name in ("normal", "albedo") else (n,) for name, _d in _RECORD_FIELDS]
-    if fresh:
-        best = HitResult(*(torch.empty(shape, dtype=dtype, device=dev)
-                           for shape, (_name, dtype) in zip(shapes, _RECORD_FIELDS)))
-    else:
-        for shape, (name, dtype), x in zip(shapes, _RECORD_FIELDS, best):
-            _checked(f"best.{name}", x, dtype, shape, dev)
+    best = record_out(best, n, dev)
     if n:
         args = _RecordArgs(*(x.data_ptr() for x in d1),
                            rot.data_ptr(), palette.data_ptr(), _ptr(oid_ray), _ptr(obj),

@@ -28,11 +28,16 @@ set_voxel`) is derived anew, so a frame never reads stale tables.
 One call allocates its outputs and, with a medium, an (N,) int32 scratch
 and one int32 counter, then launches pass 1 and, with a medium, pass 2
 (the batch rule of the JAX loop, see `csrc/dda.cu`), on the current
-stream.  `KERNEL_LAUNCHES` counts the calls that launch (`dda`), the rays
-handed to `intersect_volume_local` on either branch (`dda_rays`) and the
-table derivations of `tables_for` (`dda_tables`).  Each call is a `d1`
-span (`utils/profiling.annotate`) that notes how many of its rays the
-calling stages keep (`profiling.count_kept`).
+stream.  `race` is D1's second entry: a stacked group's candidate race
+(the K candidate passes of `ops/composite.py` and their merge) in one
+launch that walks only each ray's live slots, for CUDA tensors.
+`KERNEL_LAUNCHES` counts the calls that launch pass 1 (`dda`) and the
+race's launches (`dda_race`), the rays handed to D1 on either branch
+(`dda_rays`: a race counts the K * N rows the K passes would hand it) and
+the table derivations of `tables_for` (`dda_tables`).  Each call is a
+`d1` span (`utils/profiling.annotate`) that notes how many of its rays
+the calling stages keep (`profiling.count_kept`; a race counts the slots
+it walked of each kept row).
 """
 
 from __future__ import annotations
@@ -44,9 +49,10 @@ import torch
 
 from voxel_tracer_tpu_torch.ops import dda
 from voxel_tracer_tpu_torch.ops.cuda import _build
+from voxel_tracer_tpu_torch.ops.cuda import composite as ck
 from voxel_tracer_tpu_torch.utils import profiling
 
-KERNEL_LAUNCHES = {"dda": 0, "dda_rays": 0, "dda_tables": 0}
+KERNEL_LAUNCHES = {"dda": 0, "dda_rays": 0, "dda_tables": 0, "dda_race": 0}
 
 
 def reset_launch_counts():
@@ -72,6 +78,15 @@ class _Args(ctypes.Structure):
         (name, _I) for name in ("n", "gx", "gy", "gz", "bx", "by", "bz", "nwords",
                                 "global_bits", "vpu_stride", "max_steps", "shadow")] + [
         ("vpu", _F)]
+
+
+class _RaceArgs(ctypes.Structure):
+    """`RaceArgs` of csrc/dda.cu, field for field."""
+
+    _fields_ = [("d", _Args)] + [(name, _P) for name in (
+        "orig", "dirs", "rot", "pos", "pivot", "vpu", "palette", "cand_t", "cand_id", "rt",
+        "rmat", "rnormal", "ralbedo", "rsteps", "robj", "walked")] + [
+        (name, _I) for name in ("n", "k", "orig_row", "dirs_row", "obj_base", "fresh")]
 
 
 # ---------------------------------------------------------------------------
@@ -158,6 +173,8 @@ def _lib():
     if not getattr(lib, "_vt_typed", False):
         lib.vt_dda.argtypes = [ctypes.POINTER(_Args), _P]
         lib.vt_dda.restype = _I
+        lib.vt_dda_race.argtypes = [ctypes.POINTER(_RaceArgs), _P]
+        lib.vt_dda_race.restype = _I
         lib.vt_error_string.argtypes = [_I]
         lib.vt_error_string.restype = ctypes.c_char_p
         lib._vt_typed = True
@@ -205,21 +222,7 @@ def _intersect(grid, brick_occ, origin_l, dir_l, vpu, oid, max_steps, medium, ig
         raise ValueError(f"{n} rays: the kernel takes fewer than 2**29")
     if shadow and shadow_seed is None:
         raise ValueError("shadow=True needs shadow_seed")
-    # (O, Z, Y, X) stacked grids; without oid every ray reads object 0
-    if grid.ndim not in (3, 4) or brick_occ.ndim != grid.ndim \
-            or (oid is not None and grid.ndim != 4):
-        raise ValueError(f"grid {tuple(grid.shape)} and brick_occ "
-                         f"{tuple(brick_occ.shape)}: expected (Z, Y, X) grids, or "
-                         f"(O, Z, Y, X) with oid")
-    gz, gy, gx = grid.shape[-3:]
-    bz, by, bx = brick_occ.shape[-3:]
-    if (bz, by, bx) != tuple(-(-s // dda.BRICK) for s in (gz, gy, gx)) \
-            or brick_occ.shape[:-3] != grid.shape[:-3]:
-        raise ValueError(f"brick_occ {tuple(brick_occ.shape)} does not cover grid "
-                         f"{tuple(grid.shape)} in {dda.BRICK}^3 bricks")
-    for name, t in (("grid", grid), ("brick_occ", brick_occ)):
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, expected {dev}")
+    _check_grids(grid, brick_occ, oid is not None, dev)
     _build.check("origin_l", origin_l, torch.float32, (n, 3), dev)
     _build.check("dir_l", dir_l, torch.float32, (n, 3), dev)
     oid = _per_ray(oid, torch.int64, n, dev)
@@ -243,23 +246,119 @@ def _intersect(grid, brick_occ, origin_l, dir_l, vpu, oid, max_steps, medium, ig
                slab_tmin=empty(n), slab_tmax=empty(n), resolved=empty(n, dtype=torch.bool))
     if n == 0:                  # an empty grid is not a valid launch
         return out
+    pend = empty(n, dtype=torch.int32) if medium is not None else None
+    maxc = empty(1, dtype=torch.int32) if medium is not None else None
+    fields, _held = _walk_fields(grid, brick_occ, max_steps, ignore, seed, shadow)
+    args = _Args(
+        orig=origin_l.data_ptr(), dirs=dir_l.data_ptr(), vpu_ray=_ptr(vpu_ray), oid=_ptr(oid),
+        medium=_ptr(medium), **{k: out[k].data_ptr() for k in out}, pend=_ptr(pend),
+        maxc=_ptr(maxc), n=n, vpu_stride=vpu_stride, vpu=vpu_val, **fields)
+    _launch("vt_dda", args, dev, "dda")
+    return out
+
+
+def _check_grids(grid, brick_occ, stacked, dev):
+    """Raise unless ``grid`` and ``brick_occ`` are (Z, Y, X) grids, or
+    (O, Z, Y, X) stacked grids where ``stacked`` (an object per ray), with
+    brick counts covering the grid, on ``dev``."""
+    if grid.ndim not in (3, 4) or brick_occ.ndim != grid.ndim or (stacked and grid.ndim != 4):
+        raise ValueError(f"grid {tuple(grid.shape)} and brick_occ "
+                         f"{tuple(brick_occ.shape)}: expected (Z, Y, X) grids, or "
+                         f"(O, Z, Y, X) with oid")
+    if tuple(brick_occ.shape[-3:]) != tuple(-(-s // dda.BRICK) for s in grid.shape[-3:]) \
+            or brick_occ.shape[:-3] != grid.shape[:-3]:
+        raise ValueError(f"brick_occ {tuple(brick_occ.shape)} does not cover grid "
+                         f"{tuple(grid.shape)} in {dda.BRICK}^3 bricks")
+    for name, t in (("grid", grid), ("brick_occ", brick_occ)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, expected {dev}")
+
+
+def _walk_fields(grid, brick_occ, max_steps, ignore, seed, shadow):
+    """The `_Args` fields a walk reads besides its rays (the tables, their
+    dims, the ignore and shadow modes, the budget), and the tensors they
+    point into, which the caller holds until it has launched."""
     tb = tables_for(grid, brick_occ)
     # the kernel reads the int32 ids only where `wide` is set, which a
     # uint8 grid never is
     grid32 = None if grid.dtype == torch.uint8 else grid.to(torch.int32).contiguous()
-    pend = empty(n, dtype=torch.int32) if medium is not None else None
-    maxc = empty(1, dtype=torch.int32) if medium is not None else None
-    args = _Args(
-        origin_l.data_ptr(), dir_l.data_ptr(), tb.bits.data_ptr(), tb.occw.data_ptr(),
-        tb.matb.data_ptr(), _ptr(grid32), tb.wide.data_ptr(), _ptr(vpu_ray), _ptr(oid),
-        _ptr(medium), _ptr(ignore), _ptr(seed),
-        *(out[k].data_ptr() for k in ("t", "slab_tmin", "slab_tmax", "step_sign", "mat",
-                                      "axis", "steps", "entry_axis", "valid", "resolved")),
-        _ptr(pend), _ptr(maxc), n, gx, gy, gz, bx, by, bz, tb.bits.numel(),
-        int(bool(GLOBAL_BITMAP)), vpu_stride, int(max_steps), int(bool(shadow)), vpu_val)
+    gz, gy, gx = grid.shape[-3:]
+    bz, by, bx = brick_occ.shape[-3:]
+    fields = dict(bits=tb.bits.data_ptr(), occw=tb.occw.data_ptr(), matb=tb.matb.data_ptr(),
+                  grid=_ptr(grid32), wide=tb.wide.data_ptr(), ignore=_ptr(ignore),
+                  seed=_ptr(seed), gx=gx, gy=gy, gz=gz, bx=bx, by=by, bz=bz,
+                  nwords=tb.bits.numel(), global_bits=int(bool(GLOBAL_BITMAP)),
+                  max_steps=int(max_steps), shadow=int(bool(shadow)))
+    return fields, (tb, grid32, ignore, seed)
+
+
+def _launch(fn, args, dev, what):
     lib = _lib()
     with torch.cuda.device(dev):
-        err = lib.vt_dda(ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
-    _build.raise_on(lib, err, "dda")
-    KERNEL_LAUNCHES["dda"] += 1
-    return out
+        err = getattr(lib, fn)(ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
+    _build.raise_on(lib, err, what)
+    KERNEL_LAUNCHES[what] += 1
+
+
+def race(group, origins, dirs, cand_t, cand_id, best=None, obj_base: int = 0,
+         max_steps: int = dda.MAX_STEPS, ignore=None, shadow_seed=None,
+         shadow: bool = False):
+    """A stacked group's candidate race in one launch of D1, for CUDA
+    tensors: each ray's candidates (the prepass's (N, K) ``cand_t`` and
+    int32 ``cand_id``, nearest first) walked in order while a slot's entry
+    t can beat the race's nearest hit, as the K passes of
+    `composite._race_slots` (its plain version) walk and merge them, then
+    the race merged into ``best`` in place (a strict win, steps add) and
+    returned, or written fresh where ``best`` is None.  ``origins`` /
+    ``dirs`` are world rays (a direction row may be broadcast).  A `d1`
+    span of K * N rays, as the K passes hand D1; with spans on the kernel
+    counts each row's walked slots, the rays the span keeps.  K runs from
+    1 to `ops/cuda/composite.TOPK_MAX`."""
+    n, k = cand_t.shape
+    KERNEL_LAUNCHES["dda_rays"] += k * n
+    with profiling.annotate("d1", rays=k * n):
+        best, walked = _race(group, origins, dirs, cand_t, cand_id, best, obj_base, max_steps,
+                             ignore, shadow_seed, shadow)
+        profiling.count_kept(n, walked=walked)
+        return best
+
+
+def _race(group, origins, dirs, cand_t, cand_id, best, obj_base, max_steps, ignore,
+          shadow_seed, shadow):
+    n, k = cand_t.shape
+    dev = origins.device
+    if dev.type != "cuda":
+        raise ValueError(f"the race takes CUDA tensors, not {dev}: the plain version is "
+                         f"composite._race_slots")
+    if not 1 <= k <= ck.TOPK_MAX:
+        raise ValueError(f"k = {k} outside 1..{ck.TOPK_MAX}: the plain version is "
+                         f"composite._race_slots")
+    if n >= 2 ** 31 // 4:
+        raise ValueError(f"{n} rays: the kernel takes fewer than 2**29")
+    if shadow and shadow_seed is None:
+        raise ValueError("shadow=True needs shadow_seed")
+    _check_grids(group.grid, group.brick_occ, True, dev)
+    o_count = group.grid.shape[0]
+    origins, o_row = ck._rows("origins", origins, n, dev)
+    dirs, d_row = ck._rows("dirs", dirs, n, dev)
+    rot, pos, pivot, vpu = ck._tables(group, dev)
+    palette = ck._checked("palette", group.palette.contiguous(), torch.float32,
+                          (o_count, 256, 3), dev)
+    ck._checked("cand_t", cand_t, torch.float32, (n, k), dev)
+    ck._checked("cand_id", cand_id, torch.int32, (n, k), dev)
+    fresh = best is None
+    best = ck.record_out(best, n, dev)
+    walked = torch.empty((n,), dtype=torch.int32, device=dev) \
+        if profiling.current_span() is not None else None
+    if n == 0:
+        return best, walked
+    ignore = _per_ray(ignore, torch.int32, n, dev)
+    seed = _per_ray(shadow_seed, torch.int64, n, dev) if shadow else None
+    fields, _held = _walk_fields(group.grid, group.brick_occ, max_steps, ignore, seed, shadow)
+    args = _RaceArgs(
+        _Args(n=n, **fields), origins.data_ptr(), dirs.data_ptr(), rot.data_ptr(),
+        pos.data_ptr(), pivot.data_ptr(), vpu.data_ptr(), palette.data_ptr(),
+        cand_t.data_ptr(), cand_id.data_ptr(), *(x.data_ptr() for x in best), _ptr(walked),
+        n, k, o_row, d_row, int(obj_base), int(fresh))
+    _launch("vt_dda_race", args, dev, "dda_race")
+    return best, walked

@@ -193,22 +193,25 @@ class _Span:
         return _decorate(self.record["name"], fn)
 
 
-def count_kept(n: int):
+def count_kept(n: int, walked=None):
     """With spans on, note on the innermost open span how many of its call's
     ``n`` rays the enclosing stages keep: the rows set in every open
     span's ``keep`` of n rows (a device count, no host sync), all n where
     no such mask is open.  A mask of another length belongs to a stage
     whose rows were gathered before the call, so every row there is kept.
-    Off, it does nothing."""
+    ``walked`` (an (n,) integer tensor: the walks a call made of each row,
+    as D1's candidate race counts them) counts each kept row that many
+    times.  Off, it does nothing."""
     if not _on or not _open:
         return
     masks = [s.keep for s in _open if s.keep is not None and s.keep.shape[0] == n]
-    kept = n
-    if masks:
-        m = masks[0]
-        for other in masks[1:]:
-            m = m & other
-        kept = m.sum()
+    m = None
+    for other in masks:
+        m = other if m is None else m & other
+    if walked is None:
+        kept = n if m is None else m.sum()
+    else:
+        kept = (walked if m is None else torch.where(m, walked, 0)).sum()
     _open[-1].record["attrs"]["kept"] = kept
 
 
